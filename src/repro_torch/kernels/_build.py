@@ -1,0 +1,97 @@
+"""Build the CUDA sources under ``csrc/`` at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher and is
+compiled by ``nvcc`` alone (no PyTorch headers, so a build takes seconds)
+into ``build/repro_torch/<name>-<hash>.so`` at the repository root.  The
+hash covers the source and the flags, so an edited source is rebuilt.
+Nothing is built when a module is imported: the first wrapper call on a
+CUDA tensor (or :func:`build`) does it.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+# No --use_fast_math, and no FMA contraction: the dense energy must round
+# each float operation on its own to give the plain version's bits.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME): the CUDA kernels are built only "
+            "where the CUDA toolkit is installed"
+        )
+    return found
+
+
+def library_path(name: str) -> Path:
+    """Where the shared library for ``csrc/<name>.cu`` is (or will be) built."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def sources() -> list[str]:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build(names: list[str] | None = None) -> dict[str, str]:
+    """Compile every library in ``names`` (default: all sources) that is not
+    built yet, one ``nvcc`` per source, all started together.
+
+    Returns ``{name: compiler output}`` for the sources compiled by this
+    call (``-Xptxas -v`` reports registers and shared memory per kernel).
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    try:
+        for name in names or sources():
+            out = library_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )
+            jobs[name] = (proc, tmp, out)
+        logs = {}
+        for name, (proc, tmp, out) in jobs.items():
+            text, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{text}")
+            os.replace(tmp, out)     # atomic: a concurrent process never loads half a file
+            logs[name] = text
+        return logs
+    finally:
+        for proc, tmp, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            tmp.unlink(missing_ok=True)
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    build([name])
+    return ctypes.CDLL(str(library_path(name)))

@@ -1,0 +1,90 @@
+"""Support-point search kernel (counterpart of ``repro/kernels/support_match.py``).
+
+:func:`support_match` replaces ``support_match_pallas``: on a CUDA tensor it
+launches the hand-written kernel in ``csrc/support_match.cu`` (one launch for
+all candidate rows of a frame); on a CPU tensor it runs the plain version,
+:func:`repro_torch.kernels.ref.support_match_rows_streaming`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+# Number of kernel launches since the last reset (CPU calls do not count).
+launches = 0
+
+
+# ielas_support_match(desc_l, desc_r, out, gh, w, gw, num_disp, step, offset,
+#                     support_texture, ratio, lr_threshold, disp_min, stream)
+ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+]
+
+
+@functools.cache
+def _kernel():
+    fn = _build.load("support_match").ielas_support_match
+    fn.argtypes = ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def support_match(
+    desc_l_rows: torch.Tensor,  # (GH, W, 16) int8 -- left descriptors, candidate rows
+    desc_r_rows: torch.Tensor,  # (GH, W, 16) int8
+    *,
+    num_disp: int,
+    step: int,
+    offset: int,
+    support_texture: int,
+    support_ratio: float,
+    lr_threshold: int,
+    disp_min: int,
+) -> torch.Tensor:
+    """(GH, W // step) float32 support disparities (INVALID = -1)."""
+    if desc_l_rows.dim() != 3 or desc_l_rows.shape[-1] != 16:
+        raise ValueError(f"descriptor rows must be (GH, W, 16), got {tuple(desc_l_rows.shape)}")
+    if desc_r_rows.shape != desc_l_rows.shape:
+        raise ValueError(
+            f"view shapes differ: {tuple(desc_l_rows.shape)} vs {tuple(desc_r_rows.shape)}"
+        )
+    if desc_l_rows.dtype != torch.int8 or desc_r_rows.dtype != torch.int8:
+        raise TypeError("descriptor rows must be int8")
+    if desc_r_rows.device != desc_l_rows.device:
+        raise ValueError("both views must be on one device")
+    if num_disp < 1 or step < 1 or not 0 <= offset < step:
+        raise ValueError(f"bad search geometry: num_disp={num_disp} step={step} offset={offset}")
+    kwargs = dict(
+        num_disp=num_disp, step=step, offset=offset, support_texture=support_texture,
+        support_ratio=support_ratio, lr_threshold=lr_threshold, disp_min=disp_min,
+    )
+    device = desc_l_rows.device
+    if device.type == "cpu":
+        return ref.support_match_rows_streaming(desc_l_rows, desc_r_rows, **kwargs)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    for t in (desc_l_rows, desc_r_rows):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("descriptor rows must be contiguous and 16-byte aligned")
+    gh, w, _ = desc_l_rows.shape
+    gw = w // step
+    out = torch.empty((gh, gw), dtype=torch.float32, device=device)
+    if out.numel() == 0:
+        return out
+    fn = _kernel()
+    with torch.cuda.device(device):
+        err = fn(
+            desc_l_rows.data_ptr(), desc_r_rows.data_ptr(), out.data_ptr(),
+            gh, w, gw, num_disp, step, offset, support_texture,
+            support_ratio, lr_threshold, disp_min,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"support_match kernel launch failed: cudaError_t {err}")
+    global launches
+    launches += 1
+    return out

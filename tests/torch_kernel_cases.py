@@ -1,0 +1,75 @@
+"""Kernel test inputs shared by the CPU tests (held against the JAX
+package) and the card tests (which run where JAX is not installed): tiny
+sizes, odd widths, crafted ties (periodic and constant descriptors,
+half-integer priors), columns whose whole sweep runs off the image, and
+``disp_min > 0``, all made with numpy from fixed seeds."""
+import numpy as np
+
+SUPPORT_KW = dict(step=5, offset=2, support_texture=10, support_ratio=0.85, lr_threshold=2)
+
+
+def _desc(rng, shape, kind):
+    if kind == "random":
+        return rng.integers(-40, 41, shape).astype(np.int8)
+    if kind == "ternary":           # low entropy: many equal costs
+        return rng.integers(-1, 2, shape).astype(np.int8)
+    if kind == "periodic":          # a period-4 row: costs tie at d and d + 4
+        base = rng.integers(-30, 31, (shape[0], 4, shape[2])).astype(np.int8)
+        return np.tile(base, (1, -(-shape[1] // 4), 1))[:, : shape[1]].copy()
+    if kind == "zero":              # every cost 0, no texture
+        return np.zeros(shape, np.int8)
+    raise ValueError(kind)
+
+
+# (id, rows, width, num_disp, disp_min, left kind, right kind, seed)
+SUPPORT_CASES = [
+    ("random-w37-d16", 3, 37, 16, 0, "random", "random", 0),
+    ("ternary-w53-d24", 2, 53, 24, 0, "ternary", "ternary", 1),
+    ("periodic-w41-d16", 2, 41, 16, 0, "periodic", "periodic", 2),
+    ("zero-w21-d8", 1, 21, 8, 0, "zero", "zero", 3),
+    ("dmin4-w47-d20", 3, 47, 20, 4, "random", "random", 4),
+    ("sweep-past-edge-w13-d24", 2, 13, 24, 0, "random", "random", 5),
+]
+
+
+def support_inputs(case):
+    _, rows, w, nd, dmin, kl, kr, seed = case
+    rng = np.random.default_rng(seed)
+    dl = _desc(rng, (rows, w, 16), kl)
+    dr = _desc(rng, (rows, w, 16), kr)
+    if kl == "random" and kr == "random":
+        # Make the right view a shifted copy of the left, so support points exist.
+        shift = rng.integers(1, max(2, min(nd, w) - 1))
+        dr[:, : w - shift] = dl[:, shift:]
+    return dl, dr, dict(num_disp=nd, disp_min=dmin, **SUPPORT_KW)
+
+
+# (id, rows, width, num_disp, disp_min, cell_px, mask density, mu kind, desc kind, texture, seed)
+DENSE_CASES = [
+    ("random-w37-d16", 3, 37, 16, 0, 5, 0.2, "spread", "random", 1, 0),
+    ("dmin4-w29-d12", 2, 29, 12, 4, 4, 0.3, "spread", "random", 1, 1),
+    ("band-only-w31-d16", 2, 31, 16, 0, 5, 0.0, "spread", "random", 1, 2),
+    ("far-prior-w23-d10", 2, 23, 10, 3, 7, 0.0, "far", "random", 1, 3),
+    ("tie-half-prior-w19-d12", 2, 19, 12, 0, 5, 0.0, "half", "zero", 0, 4),
+    ("texture-gate-w17-d8", 1, 17, 8, 0, 5, 0.5, "spread", "ternary", 40, 5),
+    ("all-off-image-w9-d20", 2, 9, 20, 6, 3, 0.4, "spread", "random", 1, 6),
+]
+
+
+def dense_inputs(case):
+    _, h, w, nd, dmin, cell_px, density, mu_kind, dkind, tex, seed = case
+    rng = np.random.default_rng(seed)
+    dl = _desc(rng, (h, w, 16), dkind)
+    dr = _desc(rng, (h, w, 16), dkind)
+    lo, hi = dmin, dmin + nd - 1
+    if mu_kind == "spread":
+        mu = rng.uniform(lo - 3, hi + 3, (2, h, w))
+    elif mu_kind == "far":
+        mu = np.stack([np.full((h, w), lo - 40.0), np.full((h, w), hi + 40.0)])
+    else:   # half-integer priors: two candidates tie on the prior energy
+        mu = rng.integers(lo, hi, (2, h, w)) + 0.5
+    cw = max(1, w // cell_px)
+    gm = rng.uniform(size=(2, h, cw, nd)) < density
+    kw = dict(num_disp=nd, disp_min=dmin, plane_radius=2, cell_px=cell_px, beta=0.02,
+              gamma=3.0, sigma=1.0, match_texture=tex)
+    return dl, dr, mu.astype(np.float32), gm, kw
