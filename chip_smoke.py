@@ -7,19 +7,36 @@ Phases (any failure exits nonzero):
  1. device: card name and count, ``nvidia-smi`` name and power limit, versions;
  2. build: compile every ``src/repro_torch/kernels/csrc/*.cu`` in parallel;
  3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-    at the frame path's shapes (elas-kitti, elas-tsukuba, and a disp_min=4
-    dense case); outputs must be identical; kernel, plain and bound times;
- 4. end to end: ``ielas_disparity`` for elas-kitti and elas-tsukuba, one
-    warm-up frame and five timed frames each, with every kernel's launch
-    count rising by one per frame; per-stage and end-to-end times, the
-    bad-pixel rate against the synthetic ground truth, the output against
-    the port's CPU output of the same frame, and one profiled frame (device
-    busy share, kernels by device time);
- 5. golden frame: the card's output against the port's CPU output and the
-    pinned sha256;
- 6. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
+    at the shapes the frame path and the wave give it (elas-kitti,
+    elas-tsukuba, and disp_min=4 dense cases), with 0 mismatches allowed:
+    the kernels' float32 exp/log (exhaustive over the log's input range),
+    support search, streaming and candidate-window dense matching, Sobel,
+    median; on a wave of four different pairs the support, streaming and
+    candidate-window kernels against the plain version on the same stacked
+    inputs and slot by slot against a per-frame launch, Sobel on both views
+    of the wave and the median on the wave's maps; kernel, plain and bound
+    times;
+ 4. single frame: ``ielas_disparity`` for elas-kitti and elas-tsukuba, one
+    warm-up frame and five timed frames each, with the support, stream,
+    Sobel and median launch counts rising by one per frame; per-stage and
+    end-to-end times, the bad-pixel rate against the synthetic ground
+    truth, the output against the port's CPU output of the same frame (0
+    mismatches), and one profiled frame (device busy share, kernels by time);
+ 5. wave: the wave-shaped stages (``ielas_support_stage_batched``,
+    interpolation per slot, ``ielas_dense_stage_batched``) for elas-kitti
+    and elas-tsukuba on four different pairs, on the stream route
+    (``tile=None``) and the candidate route (``TileSpec(gather="take")``):
+    every slot equal to the card's single-frame output of its pair, one
+    launch of each kernel of the route per wave, per-stage and wave times,
+    frames per second and one profiled wave;
+ 6. golden frame: the card's output against the port's CPU output (0
+    mismatches) and the pinned sha256;
+ 7. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
 
-Imports nothing of JAX and nothing of the reference package ``repro``.
+Every time is printed with the card's name and power limit.  Each profiled
+frame or wave also leaves its device-side rows, by time, in
+``build/traces/profile-<label>.txt``.  Imports
+nothing of JAX and nothing of the reference package ``repro``.
 """
 from __future__ import annotations
 
@@ -40,21 +57,33 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 # Scalar operations per unit of work.  A 16-lane SAD: 16 differences, 16
 # absolute values, 15 adds.  A 4-deep register insert: 4 compares, 8 selects.
-# A dense candidate's energy: subtract, square, negate, divide, exp, add, log,
-# negate, convert, scale, add, compare-and-keep (12).  A dense mask test: a
-# bitmask load, two band compares, a bounds compare (4).
+# XLA's float32 exp: clamp (2), 9 FMAs, floor, square, add, convert, 3
+# integer ops for the two power-of-two factors, 2 multiplies, flush (20); its
+# log: mantissa/exponent split (4), compare and 2 selected ops, 2 multiplies,
+# 10 FMAs, a multiply, an add (22).  A dense candidate's energy: subtract,
+# square, negate, divide, add gamma, exp, log, negate, convert, FMA, and the
+# compare-and-keep (9 + exp + log).  A dense mask test: a bitmask load, two
+# band compares, a bounds compare (4); a candidate-window slot: a candidate
+# load, its column, two bounds compares (4).  A Sobel pixel (both maps): 12
+# adds and shifts per map, floor shift and two clamps per map (30).  A median
+# pixel: 19 min/max pairs and 9 compare-and-selects (56).
 OPS_SAD = 47
 OPS_INSERT4 = 12
-OPS_ENERGY = 12
+OPS_EXP = 20
+OPS_LOG = 22
+OPS_ENERGY = 9 + OPS_EXP + OPS_LOG
 OPS_MASK = 4
+OPS_SLOT = 4
+OPS_SOBEL = 30
+OPS_MEDIAN = 56
 
 GOLDEN_SHA256 = "91e3ce9df8a9d01f9b9905bd2aabe4f0791dd06329e1c6f015557054988c018b"
-# Card vs CPU output.  The port evaluates the energy's exp/log correctly
-# rounded on both, so the expected count is 0; the tolerance (about 0.1% of
-# the pixels) covers a last-bit difference between the two float64 libraries
-# landing on a float32 rounding edge.
-GOLDEN_TOLERANCE = 4      # pixels of 57 x 83
-FRAME_TOLERANCE = 1e-3    # share of a full frame's pixels
+# Card vs CPU output.  The dense energy is one float32 sequence on both
+# devices (XLA:CPU's exp/log polynomials with explicit FMAs; kernels/ref.py
+# and kernels/csrc/xla_math.cuh), so every pixel must agree.
+GOLDEN_TOLERANCE = 0      # pixels of 57 x 83
+FRAME_TOLERANCE = 0       # share of a full frame's pixels
+WAVE = 4                  # frames per wave (seeds 0-3)
 
 
 def main() -> int:
@@ -64,19 +93,49 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
     from repro_torch.configs.elas_stereo import KITTI, SYNTH, TSUKUBA
     from repro_torch.core import pipeline
-    from repro_torch.core.dense import candidate_bitmask_rows
-    from repro_torch.core.descriptor import extract
+    from repro_torch.core.dense import candidate_bitmask_rows, candidate_set
+    from repro_torch.core.descriptor import extract_views
+    from repro_torch.core.postprocess import gap_interpolation, lr_consistency
     from repro_torch.core.support import candidate_coords
+    from repro_torch.core.tiling import TileSpec
     from repro_torch.data.stereo import synthetic_stereo_pair
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import dense_match as dense_kernel
+    from repro_torch.kernels import median as median_kernel
+    from repro_torch.kernels import sobel as sobel_kernel
     from repro_torch.kernels import support_match as support_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+
+    # (name, module, counter attribute, source, the TPU kernel it replaces)
+    kernels = [
+        ("support_match", support_kernel, "launches",
+         "src/repro_torch/kernels/csrc/support_match.cu",
+         "src/repro/kernels/support_match.py:79"),
+        ("dense_match_stream", dense_kernel, "launches",
+         "src/repro_torch/kernels/csrc/dense_match_stream.cu",
+         "src/repro/kernels/dense_match.py:190"),
+        ("dense_match_windowed", dense_kernel, "windowed_launches",
+         "src/repro_torch/kernels/csrc/dense_match_windowed.cu",
+         "src/repro/kernels/dense_match.py:88"),
+        ("sobel", sobel_kernel, "launches",
+         "src/repro_torch/kernels/csrc/sobel.cu", "src/repro/kernels/sobel.py:32"),
+        ("median3x3", median_kernel, "launches",
+         "src/repro_torch/kernels/csrc/median.cu", "src/repro/kernels/median.py:18"),
+    ]
+
+    def reset_counts():
+        for _, module, attr, _, _ in kernels:
+            setattr(module, attr, 0)
+
+    def read_counts() -> dict:
+        return {name: getattr(module, attr) for name, module, attr, _, _ in kernels}
 
     # ---- 1. device -------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -112,35 +171,92 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_rows(prof) -> list:
+        """(self device us, count, name) of the device-side rows of a trace
+        (kernels, copies, sets).  The host ops that launch them carry the same
+        device time again, so only these rows are summed."""
+        return [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+    def kernel_ms(fn, kernel: str, reps: int) -> tuple[float, float]:
+        """(the kernel's own device time per launch from the profiler, the
+        wrapper's time per call by CUDA events over back-to-back calls).  The
+        second includes the wrapper's host work, which is longer than a small
+        kernel; where the trace shows no device time the first is the second."""
+        per_call = cuda_ms(fn, reps)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [r for r in device_rows(prof) if kernel in r[2]]
+        launched = sum(r[1] for r in rows)
+        own = sum(r[0] for r in rows) / launched / 1e3 if launched else per_call
+        return own, per_call
+
     def bound(nbytes: int, ops: int) -> tuple[float, str]:
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS_PER_S * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
-    def frame_inputs(cfg, d_max: float, seed: int = 0):
-        il, ir, gt = synthetic_stereo_pair(
-            height=cfg.height, width=cfg.width, d_max=d_max, seed=seed
-        )
-        return il, ir, gt
+    def nbytes_of(*tensors) -> int:
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    def mismatches(got, want) -> tuple[int, float]:
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        mism = sum(int((g != x).sum()) for g, x in zip(got, want))
+        err = max(float((g.float() - x.float()).abs().max()) for g, x in zip(got, want))
+        return mism, err
+
+    def pair(cfg, d_max: float, seed: int = 0):
+        return synthetic_stereo_pair(height=cfg.height, width=cfg.width, d_max=d_max,
+                                     seed=seed)
+
+    results = {}
+
+    def record(kernel, label, err, ms, plain, b_ms, b_by):
+        results[(kernel, label)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                        bound_ms=b_ms, bound_by=b_by)
 
     # ---- 3. kernels against their plain versions ----------------------------
-    results = {}
+    # The dense energy's exp and log: the card's sequence against the plain
+    # helpers over the energy's input ranges (x <= 0 for exp; every float32
+    # in [3, 4) = [gamma, gamma + 1) for log).
+    gen = torch.Generator().manual_seed(0)
+    x = (-88.5 * torch.rand(1 << 22, generator=gen)).to(dev)
+    y = torch.arange(0x40400000, 0x40800000, dtype=torch.int32, device=dev).view(torch.float32)
+    ex, _ = dense_kernel.xla_exp_log(x)
+    _, lg = dense_kernel.xla_exp_log(y)
+    m_exp = int((ex.view(torch.int32) != ref.xla_exp_f32(x).view(torch.int32)).sum())
+    m_log = int((lg.view(torch.int32) != ref.xla_log_f32(y).view(torch.int32)).sum())
+    print(f"xla exp/log: exp mismatches {m_exp} of {x.numel()} (x in [-88.5, 0]), log "
+          f"mismatches {m_log} of {y.numel()} (every float32 in [3, 4)) {card}")
+    if m_exp or m_log:
+        raise AssertionError("the card's exp/log differ from the plain helpers")
+
+    def support_rows(cfg, d_max, seed=0):
+        p = cfg.params
+        il, ir, _ = pair(cfg, d_max, seed)
+        dl, dr = extract_views(torch.as_tensor(il, device=dev), torch.as_tensor(ir, device=dev))
+        vs, _ = candidate_coords(cfg.height, cfg.width, p.candidate_step, dev)
+        return dl[vs].contiguous(), dr[vs].contiguous()
+
+    def support_kw(p):
+        return dict(num_disp=p.num_disp, step=p.candidate_step, offset=p.candidate_step // 2,
+                    support_texture=p.support_texture, support_ratio=p.support_ratio,
+                    lr_threshold=p.lr_threshold, disp_min=p.disp_min)
 
     def check_support(label, cfg, d_max):
         p = cfg.params
-        il, ir, _ = frame_inputs(cfg, d_max)
-        dl = extract(torch.as_tensor(il, device=dev))
-        dr = extract(torch.as_tensor(ir, device=dev))
-        vs, _ = candidate_coords(cfg.height, cfg.width, p.candidate_step, dev)
-        rows_l, rows_r = dl[vs].contiguous(), dr[vs].contiguous()
-        kw = dict(num_disp=p.num_disp, step=p.candidate_step, offset=p.candidate_step // 2,
-                  support_texture=p.support_texture, support_ratio=p.support_ratio,
-                  lr_threshold=p.lr_threshold, disp_min=p.disp_min)
+        rows_l, rows_r = support_rows(cfg, d_max)
+        kw = support_kw(p)
         got = support_kernel.support_match(rows_l, rows_r, **kw)
         want = ref.support_match_rows_streaming(rows_l, rows_r, **kw)
         torch.cuda.synchronize()
-        mism = int((got != want).sum())
-        err = float((got - want).abs().max())
+        mism, err = mismatches(got, want)
         gh, w, _ = rows_l.shape
         gw = w // p.candidate_step
         us = torch.arange(gw) * p.candidate_step + p.candidate_step // 2
@@ -148,38 +264,90 @@ def main() -> int:
                       + int(torch.clamp(us + 1, max=p.num_disp).sum()))
         nbytes = 2 * rows_l.numel() + 4 * gh * gw
         b_ms, b_by = bound(nbytes, pairs * (OPS_SAD + OPS_INSERT4))
-        ms = cuda_ms(lambda: support_kernel.support_match(rows_l, rows_r, **kw), 50)
+        ms, call = kernel_ms(lambda: support_kernel.support_match(rows_l, rows_r, **kw),
+                             "support_match_kernel", 50)
         plain = cuda_ms(lambda: ref.support_match_rows_streaming(rows_l, rows_r, **kw), 3)
         print(f"kernel support_match {label} rows {tuple(rows_l.shape)} D={p.num_disp}: "
-              f"mismatches {mism} of {got.numel()}, max_abs_err {err}, kernel {ms:.4f} ms, "
-              f"plain {plain:.3f} ms, bound {b_ms:.5f} ms ({b_by}; {nbytes} B, "
+              f"mismatches {mism} of {got.numel()}, max_abs_err {err}, kernel {ms:.4f} ms "
+              f"(per call {call:.4f} ms), plain {plain:.3f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}; {nbytes} B, "
               f"{pairs} (column, d) pairs) {card}")
         if mism:
             raise AssertionError(f"support kernel disagrees with its plain version ({label})")
-        results[("support", label)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                           bound_ms=b_ms, bound_by=b_by)
+        record("support_match", label, err, ms, plain, b_ms, b_by)
 
-    def dense_inputs(cfg, d_max, p):
-        il, ir, _ = frame_inputs(cfg, d_max)
+    def flat(t: torch.Tensor) -> torch.Tensor:
+        """A wave tensor (B, rows, ...) as the plain versions take it:
+        (B * rows, ...), as each wrapper's CPU branch reshapes it."""
+        return t.reshape(-1, *t.shape[2:])
+
+    def check_support_batched(label, cfg, d_max):
+        """A wave of four different pairs in one launch, against the plain
+        version on the same stacked rows and slot by slot against a
+        per-frame launch."""
+        kw = support_kw(cfg.params)
+        frames = [support_rows(cfg, d_max, seed) for seed in range(WAVE)]
+        rows_l = torch.stack([f[0] for f in frames])
+        rows_r = torch.stack([f[1] for f in frames])
+        got = support_kernel.support_match(rows_l, rows_r, **kw)
+        want = ref.support_match_rows_streaming(flat(rows_l), flat(rows_r), **kw)
+        per_frame = torch.stack([support_kernel.support_match(*f, **kw) for f in frames])
+        torch.cuda.synchronize()
+        mism, err = mismatches(got, want.reshape(got.shape))
+        slot, _ = mismatches(got, per_frame)
+        ms, _ = kernel_ms(lambda: support_kernel.support_match(rows_l, rows_r, **kw),
+                          "support_match_kernel", 20)
+        per = WAVE * kernel_ms(lambda: support_kernel.support_match(*frames[0], **kw),
+                               "support_match_kernel", 20)[0]
+        print(f"kernel support_match {label} batched B={WAVE} {tuple(rows_l.shape)}: "
+              f"mismatches {mism} of {got.numel()} against the plain version (max_abs_err "
+              f"{err}), {slot} against per-frame launches; one launch {ms:.4f} ms, {WAVE} x "
+              f"the first frame's launch {per:.4f} ms (device time) {card}")
+        if mism or slot:
+            raise AssertionError(f"batched support kernel disagrees ({label})")
+
+    def dense_inputs(cfg, d_max, p, seed=0):
+        """The dense stage's inputs for one frame, from the port's stages on
+        the card: descriptors, priors, bitmasks and candidate tensors."""
+        il, ir, _ = pair(cfg, d_max, seed)
         dl, dr, sup = pipeline.ielas_support_stage(
             torch.as_tensor(il, device=dev), torch.as_tensor(ir, device=dev), p)
         sup = pipeline.ielas_interpolate_stage(sup, p)
         mu_l, mu_r, gv_l, gv_r = pipeline._dense_priors(sup, cfg.height, cfg.width, p)
-        gm_l = candidate_bitmask_rows(gv_l, p, cfg.height)
-        gm_r = candidate_bitmask_rows(gv_r, p, cfg.height)
-        return dl, dr, mu_l, mu_r, gm_l, gm_r
+        return dict(
+            dl=dl, dr=dr, mu_l=mu_l, mu_r=mu_r,
+            gm_l=candidate_bitmask_rows(gv_l, p, cfg.height),
+            gm_r=candidate_bitmask_rows(gv_r, p, cfg.height),
+            cand_l=candidate_set(mu_l, gv_l, p), cand_r=candidate_set(mu_r, gv_r, p),
+        )
 
-    def dense_candidates(inputs, p) -> int:
+    def stream_args(inp):
+        return [inp[k] for k in ("dl", "dr", "mu_l", "mu_r", "gm_l", "gm_r")]
+
+    def windowed_args(inp):
+        return [inp[k] for k in ("dl", "dr", "mu_l", "mu_r", "cand_l", "cand_r")]
+
+    def stream_kw(p):
+        return dict(num_disp=p.num_disp, disp_min=p.disp_min, plane_radius=p.plane_radius,
+                    cell_px=p.grid_size, beta=p.beta, gamma=p.gamma, sigma=p.sigma,
+                    match_texture=p.match_texture)
+
+    def windowed_kw(p):
+        return dict(num_disp=p.num_disp, disp_min=p.disp_min, beta=p.beta, gamma=p.gamma,
+                    sigma=p.sigma, match_texture=p.match_texture)
+
+    def stream_candidates(inp, p) -> int:
         """(pixel, d, view) triples whose candidate mask holds and whose
         matching column is inside the image: the work this data needs."""
-        dl, _, mu_l, mu_r, gm_l, gm_r = inputs
+        mu_l = inp["mu_l"]
         h, w = mu_l.shape
-        cw = gm_l.shape[1]
+        cw = inp["gm_l"].shape[1]
         cx = (torch.arange(w, device=dev) // p.grid_size).clamp(max=cw - 1)
         d = torch.arange(p.num_disp, device=dev, dtype=torch.float32) + p.disp_min
         u = torch.arange(w, device=dev)[:, None]
         total = 0
-        for mu, gm, inside in ((mu_l, gm_l, u >= d), (mu_r, gm_r, u + d < w)):
+        for mu, gm, inside in ((mu_l, inp["gm_l"], u >= d), (inp["mu_r"], inp["gm_r"],
+                                                             u + d < w)):
             r = torch.round(mu)[..., None]
             lo = (r - p.plane_radius).clamp(p.disp_min, p.disp_min + p.num_disp - 1)
             hi = (r + p.plane_radius).clamp(p.disp_min, p.disp_min + p.num_disp - 1)
@@ -187,75 +355,215 @@ def main() -> int:
             total += int((mask & inside[None]).sum())
         return total
 
-    def check_dense(label, cfg, d_max, p, time_it=True):
-        inputs = dense_inputs(cfg, d_max, p)
-        kw = dict(num_disp=p.num_disp, disp_min=p.disp_min, plane_radius=p.plane_radius,
-                  cell_px=p.grid_size, beta=p.beta, gamma=p.gamma, sigma=p.sigma,
-                  match_texture=p.match_texture)
-        got = dense_kernel.dense_match_stream(*inputs, **kw)
-        want = ref.dense_match_rows_stream_ref(*inputs, **kw)
+    def windowed_inside(inp) -> int:
+        """Candidate slots whose matching column is inside the image."""
+        w = inp["mu_l"].shape[-1]
+        u = torch.arange(w, device=dev)[:, None]
+        return (int(((u - inp["cand_l"]) >= 0).sum())
+                + int(((u + inp["cand_r"]) < w).sum()))
+
+    def check_stream(label, inp, p, time_it=True):
+        args, kw = stream_args(inp), stream_kw(p)
+        got = dense_kernel.dense_match_stream(*args, **kw)
+        want = ref.dense_match_rows_stream_ref(*args, **kw)
         torch.cuda.synchronize()
-        mism = sum(int((g != x).sum()) for g, x in zip(got, want))
-        err = max(float((g - x).abs().max()) for g, x in zip(got, want))
-        line = (f"kernel dense_match_stream {label} {tuple(inputs[0].shape[:2])} "
-                f"D={p.num_disp} disp_min={p.disp_min}: mismatches {mism} of "
-                f"{2 * got[0].numel()}, max_abs_err {err}")
+        mism, err = mismatches(got, want)
+        h, w = inp["mu_l"].shape
+        line = (f"kernel dense_match_stream {label} {(h, w)} D={p.num_disp} "
+                f"disp_min={p.disp_min}: mismatches {mism} of {2 * h * w}, max_abs_err {err}")
         if time_it:
-            h, w = inputs[2].shape
-            cands = dense_candidates(inputs, p)
-            nbytes = sum(t.numel() * t.element_size() for t in inputs) + 2 * 4 * h * w
+            cands = stream_candidates(inp, p)
+            nbytes = nbytes_of(*args) + 2 * 4 * h * w
             ops = cands * (OPS_SAD + OPS_ENERGY) + 2 * h * w * p.num_disp * OPS_MASK
             b_ms, b_by = bound(nbytes, ops)
-            ms = cuda_ms(lambda: dense_kernel.dense_match_stream(*inputs, **kw), 20)
-            plain = cuda_ms(lambda: ref.dense_match_rows_stream_ref(*inputs, **kw), 3)
-            line += (f", kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {b_ms:.5f} ms "
-                     f"({b_by}; {nbytes} B, {cands} candidates of "
-                     f"{2 * h * w * p.num_disp})")
-            results[("dense", label)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                             bound_ms=b_ms, bound_by=b_by)
+            ms, call = kernel_ms(lambda: dense_kernel.dense_match_stream(*args, **kw),
+                                 "dense_match_stream_kernel", 20)
+            plain = cuda_ms(lambda: ref.dense_match_rows_stream_ref(*args, **kw), 3)
+            line += (f", kernel {ms:.4f} ms (per call {call:.4f} ms), plain {plain:.3f} ms, "
+                     f"bound {b_ms:.5f} ms "
+                     f"({b_by}; {nbytes} B, {cands} candidates of {2 * h * w * p.num_disp})")
+            record("dense_match_stream", label, err, ms, plain, b_ms, b_by)
         print(f"{line} {card}")
         if mism:
-            raise AssertionError(f"dense kernel disagrees with its plain version ({label})")
+            raise AssertionError(f"stream kernel disagrees with its plain version ({label})")
 
-    check_support("elas-kitti", KITTI, 100.0)
-    check_support("elas-tsukuba", TSUKUBA, 48.0)
-    check_dense("elas-kitti", KITTI, 100.0, KITTI.params)
-    check_dense("elas-tsukuba", TSUKUBA, 48.0, TSUKUBA.params)
-    check_dense("elas-kitti", KITTI, 100.0, dataclasses.replace(KITTI.params, disp_min=4),
-                time_it=False)
+    def check_windowed(label, inp, p, time_it=True):
+        args, kw = windowed_args(inp), windowed_kw(p)
+        got = dense_kernel.dense_match_candidates(*args, **kw)
+        want = ref.dense_match_rows_windowed_ref(*args, **kw)
+        torch.cuda.synchronize()
+        mism, err = mismatches(got, want)
+        h, w = inp["mu_l"].shape
+        c = inp["cand_l"].shape[-1]
+        line = (f"kernel dense_match_windowed {label} {(h, w)} C={c} D={p.num_disp} "
+                f"disp_min={p.disp_min}: mismatches {mism} of {2 * h * w}, max_abs_err {err}")
+        if time_it:
+            inside = windowed_inside(inp)
+            nbytes = nbytes_of(*args) + 2 * 4 * h * w
+            ops = inside * (OPS_SAD + OPS_ENERGY) + 2 * h * w * c * OPS_SLOT
+            b_ms, b_by = bound(nbytes, ops)
+            ms, call = kernel_ms(lambda: dense_kernel.dense_match_candidates(*args, **kw),
+                                 "dense_match_windowed_kernel", 20)
+            plain = cuda_ms(lambda: ref.dense_match_rows_windowed_ref(*args, **kw), 3)
+            line += (f", kernel {ms:.4f} ms (per call {call:.4f} ms), plain {plain:.3f} ms, "
+                     f"bound {b_ms:.5f} ms "
+                     f"({b_by}; {nbytes} B, {inside} in-image slots of {2 * h * w * c})")
+            record("dense_match_windowed", label, err, ms, plain, b_ms, b_by)
+        print(f"{line} {card}")
+        if mism:
+            raise AssertionError(f"windowed kernel disagrees with its plain version ({label})")
 
-    def profile_frame(cfg, il, ir, p):
-        """One more frame under torch.profiler: the device's busy share of
-        the frame and the kernels that take its device time."""
-        from torch.profiler import ProfilerActivity, profile
+    def check_dense_batched(kernel, label, frames, p):
+        """One launch over a wave of four different frames, against the
+        plain version on the same stacked inputs and slot by slot against
+        a per-frame launch."""
+        fn, plain, args_of, kw, symbol = {
+            "dense_match_stream": (dense_kernel.dense_match_stream,
+                                   ref.dense_match_rows_stream_ref, stream_args, stream_kw(p),
+                                   "dense_match_stream_kernel"),
+            "dense_match_windowed": (dense_kernel.dense_match_candidates,
+                                     ref.dense_match_rows_windowed_ref, windowed_args,
+                                     windowed_kw(p), "dense_match_windowed_kernel"),
+        }[kernel]
+        args = [torch.stack(x) for x in zip(*(args_of(f) for f in frames))]
+        got = fn(*args, **kw)
+        want = [o.reshape(got[0].shape) for o in plain(*(flat(a) for a in args), **kw)]
+        per_frame = [torch.stack(x) for x in zip(*(fn(*args_of(f), **kw) for f in frames))]
+        torch.cuda.synchronize()
+        mism, err = mismatches(got, want)
+        slot, _ = mismatches(got, per_frame)
+        ms, _ = kernel_ms(lambda: fn(*args, **kw), symbol, 10)
+        per = sum(kernel_ms(lambda f=f: fn(*args_of(f), **kw), symbol, 10)[0] for f in frames)
+        print(f"kernel {kernel} {label} batched B={WAVE} {tuple(args[2].shape)}: mismatches "
+              f"{mism} of {2 * args[2].numel()} against the plain version (max_abs_err {err}), "
+              f"{slot} against per-frame launches; one launch {ms:.4f} ms, {WAVE} per-frame "
+              f"launches {per:.4f} ms (device time) {card}")
+        if mism or slot:
+            raise AssertionError(f"batched {kernel} kernel disagrees ({label})")
 
+    def view_stack(cfg, d_max, seeds) -> torch.Tensor:
+        """(2, [B,] H, W) uint8: both views of one pair, or of a wave, as
+        ``extract_views`` hands them to the Sobel kernel."""
+        pairs = [pair(cfg, d_max, seed) for seed in seeds]
+        views = [torch.as_tensor(np.stack([pr[i] for pr in pairs]), device=dev)
+                 for i in (0, 1)]
+        stack = torch.stack(views)
+        return stack[:, 0] if len(seeds) == 1 else stack
+
+    def check_sobel(label, imgs):
+        got = sobel_kernel.sobel(imgs)
+        want = ref.sobel_rows_ref(*ref.edge_row_views(imgs.to(torch.int32)))
+        torch.cuda.synchronize()
+        mism, err = mismatches(got, want)
+        n = imgs.numel()
+        nbytes = n * imgs.element_size() + 2 * n
+        b_ms, b_by = bound(nbytes, n * OPS_SOBEL)
+        ms, call = kernel_ms(lambda: sobel_kernel.sobel(imgs), "sobel_kernel", 50)
+        plain = cuda_ms(lambda: ref.sobel_rows_ref(*ref.edge_row_views(imgs.to(torch.int32))),
+                        10)
+        print(f"kernel sobel {label} both views {tuple(imgs.shape)} {imgs.dtype}: mismatches "
+              f"{mism} of {2 * n}, max_abs_err {err}, kernel {ms:.4f} ms (per call {call:.4f} ms, "
+              f"the int32 cast included), plain {plain:.3f} "
+              f"ms, bound {b_ms:.5f} ms ({b_by}; {nbytes} B) {card}")
+        if mism:
+            raise AssertionError(f"sobel kernel disagrees with its plain version ({label})")
+        record("sobel", label, err, ms, plain, b_ms, b_by)
+
+    def median_input(args, p) -> torch.Tensor:
+        """The map the median sees on the path, ([B,] H, W): the L/R-checked,
+        gap-filled disparities, invalid pixels included."""
+        disp_l, disp_r = dense_kernel.dense_match_stream(*args, **stream_kw(p))
+        return gap_interpolation(lr_consistency(disp_l, disp_r, p), p)
+
+    def check_median(label, d):
+        got = median_kernel.median3x3(d)
+        want = ref.median3x3_rows_ref(*ref.edge_row_views(d))
+        torch.cuda.synchronize()
+        mism, err = mismatches(got, want)
+        n = d.numel()
+        invalid = int((d == -1.0).sum())
+        nbytes = 8 * n
+        b_ms, b_by = bound(nbytes, n * OPS_MEDIAN)
+        ms, call = kernel_ms(lambda: median_kernel.median3x3(d), "median3x3_kernel", 50)
+        plain = cuda_ms(lambda: ref.median3x3_rows_ref(*ref.edge_row_views(d)), 10)
+        print(f"kernel median3x3 {label} {tuple(d.shape)} ({invalid} invalid pixels): "
+              f"mismatches {mism} of {n}, max_abs_err {err}, kernel {ms:.4f} ms (per call "
+              f"{call:.4f} ms), plain "
+              f"{plain:.3f} ms, bound {b_ms:.5f} ms ({b_by}; {nbytes} B) {card}")
+        if mism or invalid == 0:
+            raise AssertionError(f"median kernel disagrees, or no invalid pixel ({label})")
+        record("median3x3", label, err, ms, plain, b_ms, b_by)
+
+    for cfg, d_max in ((KITTI, 100.0), (TSUKUBA, 48.0)):
+        check_support(cfg.name, cfg, d_max)
+        check_support_batched(cfg.name, cfg, d_max)
+    for cfg, d_max in ((KITTI, 100.0), (TSUKUBA, 48.0)):
+        p = cfg.params
+        # The wave of phase 5: seeds 0-3; seed 0 is also the single frame.
+        wave = [dense_inputs(cfg, d_max, p, seed) for seed in range(WAVE)]
+        check_stream(cfg.name, wave[0], p)
+        check_windowed(cfg.name, wave[0], p)
+        check_sobel(cfg.name, view_stack(cfg, d_max, [0]))
+        check_median(cfg.name, median_input(stream_args(wave[0]), p))
+        for kernel in ("dense_match_stream", "dense_match_windowed"):
+            check_dense_batched(kernel, cfg.name, wave, p)
+        check_sobel(f"{cfg.name} wave", view_stack(cfg, d_max, range(WAVE)))
+        stacked = [torch.stack(x) for x in zip(*(stream_args(f) for f in wave))]
+        check_median(f"{cfg.name} wave", median_input(stacked, p))
+        del wave, stacked
+    p4 = dataclasses.replace(KITTI.params, disp_min=4)
+    inp = dense_inputs(KITTI, 100.0, p4)
+    check_stream("elas-kitti", inp, p4, time_it=False)
+    check_windowed("elas-kitti", inp, p4, time_it=False)
+    del inp
+
+    def trace(label, fn):
+        """``fn`` once more under torch.profiler: the device's busy share of
+        its wall time and the kernels that take its device time."""
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            pipeline.ielas_disparity(il, ir, p)
+            fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        rows = [(getattr(e, "self_device_time_total", 0.0), e.count, e.key)
-                for e in prof.key_averages()
-                if getattr(e, "self_device_time_total", 0.0) > 0]
+        rows = device_rows(prof)
         busy_us = sum(r[0] for r in rows)
         if not rows:
-            print(f"profile {cfg.name}: no device time in the trace (not measured) {card}")
+            print(f"profile {label}: no device time in the trace (not measured) {card}")
             return
         top = "; ".join(f"{k[:48]} x{n} {t:.1f} us" for t, n, k in sorted(rows, reverse=True)[:8])
-        print(f"profile {cfg.name}: frame {wall_us:.1f} us wall under the profiler, device "
+        print(f"profile {label}: {wall_us:.1f} us wall under the profiler, device "
               f"busy {busy_us:.1f} us ({100 * busy_us / wall_us:.1f}%), "
-              f"{sum(r[1] for r in rows)} device ops; top: {top} {card}")
+              f"{sum(r[1] for r in rows)} device operations; top: {top} {card}")
+        out_dir = ROOT / "build" / "traces"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        table = "\n".join(f"{t:12.1f} us {n:6d} x  {k}" for t, n, k in sorted(rows, reverse=True))
+        (out_dir / f"profile-{label.replace(' ', '-')}.txt").write_text(f"{card}\n{table}\n")
 
-    # ---- 4. end to end ---------------------------------------------------
-    kernels = (support_kernel, dense_kernel)
-    launches = {k: 0 for k in kernels}
+    def median_of(v):
+        return sorted(v)[len(v) // 2]
+
+    def check_output(label, out, cfg):
+        """The range and coverage checks of tests/test_system.py."""
+        p = cfg.params
+        if out.shape[-2:] != (cfg.height, cfg.width) or out.dtype != torch.float32:
+            raise AssertionError(f"{label}: output {tuple(out.shape)} {out.dtype}")
+        valid = out != -1.0
+        if not bool(torch.isfinite(out).all()) or float(valid.float().mean()) <= 0.5:
+            raise AssertionError(f"{label}: non-finite output or under half the pixels valid")
+        if float(out[valid].min()) < p.disp_min or float(out[valid].max()) > p.disp_max:
+            raise AssertionError(f"{label}: disparities outside [disp_min, disp_max]")
+
+    # ---- 4. single frame -------------------------------------------------
+    launches = {k[0]: 0 for k in kernels}
+    per_frame = {"support_match": 1, "dense_match_stream": 1, "dense_match_windowed": 0,
+                 "sobel": 1, "median3x3": 1}
     frames = 6
+    single = {}
     for cfg, d_max in ((KITTI, 100.0), (TSUKUBA, 48.0)):
         p = cfg.params
-        il, ir, gt = frame_inputs(cfg, d_max)
-        for k in kernels:
-            k.launches = 0
+        il, ir, gt = pair(cfg, d_max)
+        reset_counts()
         warm = pipeline.ielas_disparity(il, ir, p)          # the entry point, on cuda:0
         torch.cuda.synchronize()
         stage_ms = {"support": [], "interpolation": [], "dense": []}
@@ -277,19 +585,12 @@ def main() -> int:
                 stage_ms[key].append(ev[i].elapsed_time(ev[i + 1]))
             if not torch.equal(out, warm):
                 raise AssertionError(f"{cfg.name}: frames of one input differ")
-        counts = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
-        for k in kernels:
-            if k.launches != frames:
-                raise AssertionError(f"{cfg.name}: {counts} launches for {frames} frames")
-            launches[k] += k.launches
-        if out.shape != (cfg.height, cfg.width) or out.dtype != torch.float32:
-            raise AssertionError(f"{cfg.name}: output {tuple(out.shape)} {out.dtype}")
-        # The range and coverage checks of tests/test_system.py.
-        valid = out != -1.0
-        if not bool(torch.isfinite(out).all()) or float(valid.float().mean()) <= 0.5:
-            raise AssertionError(f"{cfg.name}: non-finite output or under half the pixels valid")
-        if float(out[valid].min()) < p.disp_min or float(out[valid].max()) > p.disp_max:
-            raise AssertionError(f"{cfg.name}: disparities outside [disp_min, disp_max]")
+        counts = read_counts()
+        if counts != {k: frames * n for k, n in per_frame.items()}:
+            raise AssertionError(f"{cfg.name}: launches {counts} for {frames} frames")
+        for k in launches:
+            launches[k] += counts[k]
+        check_output(cfg.name, out, cfg)
         on_cpu = pipeline.ielas_disparity(il, ir, p, device="cpu")
         cpu_mism = int((out.cpu() != on_cpu).sum())
         if cpu_mism > FRAME_TOLERANCE * out.numel():
@@ -297,8 +598,9 @@ def main() -> int:
         gt_t = torch.as_tensor(gt, device=dev)
         bad = float(pipeline.bad_pixel_rate(out, gt_t))
         err = float(pipeline.disparity_error(out, gt_t))
-        med = {key: sorted(v)[len(v) // 2] for key, v in stage_ms.items()}
-        wall_med = sorted(wall)[len(wall) // 2]
+        med = {key: median_of(v) for key, v in stage_ms.items()}
+        wall_med = median_of(wall)
+        single[cfg.name] = wall_med
         print(f"e2e {cfg.name} {cfg.height}x{cfg.width} D={p.num_disp}: launches {counts} "
               f"in {frames} frames; median of {frames - 1} frames: support "
               f"{med['support']:.3f} ms, interpolation {med['interpolation']:.3f} ms, "
@@ -306,9 +608,72 @@ def main() -> int:
               f"wall = {1.0 / wall_med:.2f} fps; bad-pixel rate (tau 3) {bad:.4f}, "
               f"Eq.1 error {err:.4f}; card vs CPU mismatches {cpu_mism} of {out.numel()} "
               f"{card}")
-        profile_frame(cfg, il, ir, p)
+        trace(f"{cfg.name} frame", lambda: pipeline.ielas_disparity(il, ir, p))
 
-    # ---- 5. golden frame across devices -------------------------------------
+    # ---- 5. wave ---------------------------------------------------------
+    routes = (("stream", None, "dense_match_stream"),
+              ("take", TileSpec(gather="take"), "dense_match_windowed"))
+    waves = 4
+    for cfg, d_max in ((KITTI, 100.0), (TSUKUBA, 48.0)):
+        p = cfg.params
+        pairs = [pair(cfg, d_max, seed)[:2] for seed in range(WAVE)]
+        left_np = np.stack([pr[0] for pr in pairs])
+        right_np = np.stack([pr[1] for pr in pairs])
+        # Each pair's single-frame output on the card (stream route); phase 4
+        # holds that route against the CPU.
+        want = torch.stack([pipeline.ielas_disparity(il, ir, p) for il, ir in pairs])
+        if len({hashlib.sha256(w.cpu().numpy().tobytes()).hexdigest() for w in want}) != WAVE:
+            raise AssertionError(f"{cfg.name}: the wave's {WAVE} pairs must differ")
+
+        for route, tile, dense_name in routes:
+            def run_wave(times=None):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                t0 = time.perf_counter()
+                ev[0].record()
+                left = torch.as_tensor(left_np, device=dev)
+                right = torch.as_tensor(right_np, device=dev)
+                dl, dr, sup = pipeline.ielas_support_stage_batched(left, right, p, tile=tile)
+                ev[1].record()
+                full = torch.stack([pipeline.ielas_interpolate_stage(s, p) for s in sup])
+                ev[2].record()
+                out = pipeline.ielas_dense_stage_batched(dl, dr, full, p, tile=tile)
+                ev[3].record()
+                torch.cuda.synchronize()
+                if times is not None:
+                    times["wall"].append(time.perf_counter() - t0)
+                    for i, key in enumerate(("support", "interpolation", "dense")):
+                        times[key].append(ev[i].elapsed_time(ev[i + 1]))
+                return out
+
+            reset_counts()
+            times = {"support": [], "interpolation": [], "dense": [], "wall": []}
+            run_wave()
+            for _ in range(waves - 1):
+                out = run_wave(times)
+                slot_mism = [int((out[i] != want[i]).sum()) for i in range(WAVE)]
+                if any(slot_mism):
+                    raise AssertionError(f"{cfg.name} {route}: wave slots differ from the "
+                                         f"single-frame output: {slot_mism}")
+            counts = read_counts()
+            expect = {k: waves if k in ("support_match", "sobel", "median3x3", dense_name)
+                      else 0 for k in launches}
+            if counts != expect:
+                raise AssertionError(f"{cfg.name} {route}: launches {counts} for {waves} "
+                                     f"waves, expected {expect}")
+            for k in launches:
+                launches[k] += counts[k]
+            check_output(f"{cfg.name} {route} wave", out, cfg)
+            med = {key: median_of(v) for key, v in times.items()}
+            print(f"wave {cfg.name} {route} B={WAVE}: launches {counts} in {waves} waves; "
+                  f"every slot equals its single-frame output; median of {waves - 1} waves: "
+                  f"support {med['support']:.3f} ms, interpolation "
+                  f"{med['interpolation']:.3f} ms, dense {med['dense']:.3f} ms (CUDA "
+                  f"events), wave {med['wall'] * 1e3:.3f} ms wall = "
+                  f"{WAVE / med['wall']:.2f} frames/s (single frame "
+                  f"{1.0 / single[cfg.name]:.2f} fps) {card}")
+            trace(f"{cfg.name} {route} wave of {WAVE}", run_wave)
+
+    # ---- 6. golden frame across devices -------------------------------------
     il, ir, _ = synthetic_stereo_pair(height=57, width=83, d_max=24, seed=11)
     on_card = pipeline.ielas_disparity(il, ir, SYNTH.params).cpu().numpy()
     on_cpu = pipeline.ielas_disparity(il, ir, SYNTH.params, device="cpu").numpy()
@@ -323,21 +688,15 @@ def main() -> int:
     if mism > GOLDEN_TOLERANCE:
         raise AssertionError(f"card output differs from the CPU output in {mism} pixels")
 
-    # ---- 6. summary --------------------------------------------------------
+    # ---- 7. summary --------------------------------------------------------
     entries = []
-    for kind, module, kname, source, replaces in (
-        ("support", support_kernel, "support_match",
-         "src/repro_torch/kernels/csrc/support_match.cu",
-         "src/repro/kernels/support_match.py:79"),
-        ("dense", dense_kernel, "dense_match_stream",
-         "src/repro_torch/kernels/csrc/dense_match_stream.cu",
-         "src/repro/kernels/dense_match.py:190"),
-    ):
-        r = results[(kind, "elas-kitti")]
+    for kname, _, _, source, replaces in kernels:
+        if launches[kname] == 0:
+            raise AssertionError(f"{kname} was never launched on the main path")
+        r = results[(kname, "elas-kitti")]
         entries.append({
-            "name": kname,
-            "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[module], "max_abs_err": r["max_abs_err"],
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[kname], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
         })

@@ -42,3 +42,15 @@ def build_grid_vector(support: torch.Tensor, p: ElasParams) -> torch.Tensor:
     reps = torch.gather(sorted_pool, -1, idx)
     return torch.where(n_valid[..., None] > 0, reps, p.const_fill)
 
+
+def cell_index(
+    height: int, width: int, p: ElasParams, device=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Map every pixel row and column to its grid-vector cell (clipped at
+    the borders): (cy (H,), cx (W,)) int64."""
+    npc_px = p.grid_size
+    ch = height // npc_px
+    cw = width // npc_px
+    cy = (torch.arange(height, device=device) // npc_px).clamp(0, ch - 1)
+    cx = (torch.arange(width, device=device) // npc_px).clamp(0, cw - 1)
+    return cy, cx

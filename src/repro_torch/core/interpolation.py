@@ -25,20 +25,20 @@ _NO_NEIGHBOUR = 1 << 30   # "no valid neighbour" distance: exceeds any s_delta
 
 
 def nearest_valid_lr(x: torch.Tensor):
-    """Nearest valid value/distance to the left and right along rows of a 2-D
-    tensor: (val_l, dist_l, val_r, dist_r), dist = 2^30 where none exists."""
-    w = x.shape[1]
+    """Nearest valid value/distance to the left and right along the last
+    axis: (val_l, dist_l, val_r, dist_r), dist = 2^30 where none exists."""
+    w = x.shape[-1]
     col = torch.arange(w, device=x.device).expand_as(x)
 
     def leftwards(g):
-        idx = torch.cummax(torch.where(g != INVALID, col, -1), dim=1).values
-        val = torch.gather(g, 1, idx.clamp(min=0))
+        idx = torch.cummax(torch.where(g != INVALID, col, -1), dim=-1).values
+        val = torch.gather(g, -1, idx.clamp(min=0))
         dist = torch.where(idx >= 0, col - idx, _NO_NEIGHBOUR)
         return val, dist.to(torch.int32)
 
     val_l, dist_l = leftwards(x)
-    val_r, dist_r = leftwards(torch.flip(x, dims=(1,)))
-    return val_l, dist_l, torch.flip(val_r, dims=(1,)), torch.flip(dist_r, dims=(1,))
+    val_r, dist_r = leftwards(torch.flip(x, dims=(-1,)))
+    return val_l, dist_l, torch.flip(val_r, dims=(-1,)), torch.flip(dist_r, dims=(-1,))
 
 
 def _axis_interpolation(grid: torch.Tensor, p: ElasParams) -> tuple[torch.Tensor, torch.Tensor]:

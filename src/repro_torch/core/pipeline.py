@@ -9,8 +9,19 @@ the dense-matching datapath (paper Fig. 3):
   (the support kernel);
 * :func:`ielas_interpolate_stage` -- the paper's regular interpolation
   completing the support grid;
-* :func:`ielas_dense_stage` -- plane priors, grid-vector bitmasks, dense
-  matching for both views (the dense kernel), post-processing.
+* :func:`ielas_dense_stage` -- plane priors, grid vectors, dense matching
+  for both views (a dense kernel), post-processing (the median kernel).
+
+The ``*_batched`` stages are the wave-shaped forms the serving engine
+runs: a leading batch axis of B frames, one launch of each kernel per
+wave, and every slot equal to the single-frame stage on that frame, bit
+for bit.  The per-frame preparation around the kernels (filtering,
+interpolation, grid vectors) runs frame by frame.
+
+``tile`` picks the dense route (:mod:`repro_torch.core.tiling`): ``None``
+or ``gather="stream"`` the gather-free scan, :data:`UNTILED` or a windowed
+gather the candidate-window kernel -- bitwise equal.  The reference's
+tile heights and precision are invisible in the output and ignored here.
 
 Stages run on the device of the tensors they are given.  The entry point
 runs on CUDA unless the caller passes another device.
@@ -22,14 +33,16 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.dense import dense_both_views
+from repro_torch.core import descriptor as desc_mod
+from repro_torch.core.dense import dense_both_views, dense_both_views_batched
 from repro_torch.core.filtering import filter_support
 from repro_torch.core.grid_vector import build_grid_vector
 from repro_torch.core.interpolation import interpolate_support
 from repro_torch.core.params import ElasParams
 from repro_torch.core.postprocess import postprocess
 from repro_torch.core.prior import plane_prior, right_view_support
-from repro_torch.core.support import descriptors_and_support
+from repro_torch.core.support import descriptors_and_support, extract_support_grid_batched
+from repro_torch.core.tiling import TileArg, dense_route
 
 
 def resolve_device(device=None) -> torch.device:
@@ -48,13 +61,16 @@ def resolve_device(device=None) -> torch.device:
 def _dense_priors(
     support_left: torch.Tensor, h: int, w: int, p: ElasParams
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-frame dense-stage inputs: (mu_l, mu_r, gv_l, gv_r)."""
-    mu_l = plane_prior(support_left, h, w, p)
-    gv_l = build_grid_vector(support_left, p)
-    sup_r = interpolate_support(right_view_support(support_left, p), p)
-    mu_r = plane_prior(sup_r, h, w, p)
-    gv_r = build_grid_vector(sup_r, p)
-    return mu_l, mu_r, gv_l, gv_r
+    """Dense-stage inputs (mu_l, mu_r, gv_l, gv_r) of one frame (GH, GW) or
+    a wave (B, GH, GW), with the same leading axis.  The right view's
+    support and the grid vectors are built frame by frame; the priors of
+    both views of every frame come from one :func:`plane_prior` call."""
+    lead = support_left.shape[:-2]
+    frames = support_left.reshape(-1, *support_left.shape[-2:])
+    sup_r = torch.stack([interpolate_support(right_view_support(s, p), p) for s in frames])
+    mu_l, mu_r = plane_prior(torch.stack([frames, sup_r]), h, w, p).reshape(2, *lead, h, w)
+    gv_l, gv_r = (torch.stack([build_grid_vector(s, p) for s in view]) for view in (frames, sup_r))
+    return mu_l, mu_r, gv_l.reshape(*lead, *gv_l.shape[1:]), gv_r.reshape(*lead, *gv_r.shape[1:])
 
 
 def _narrow_band(p: ElasParams, band_radius: Optional[int]) -> ElasParams:
@@ -68,12 +84,31 @@ def _narrow_band(p: ElasParams, band_radius: Optional[int]) -> ElasParams:
 
 
 def ielas_support_stage(
-    img_left: torch.Tensor, img_right: torch.Tensor, p: ElasParams
+    img_left: torch.Tensor, img_right: torch.Tensor, p: ElasParams, tile: TileArg = None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Descriptors (H, W, 16) int8 for both views + the filtered sparse
-    support grid (GH, GW) float32."""
+    support grid (GH, GW) float32.  ``tile`` is validated; the support
+    search is the same for every tile."""
+    dense_route(tile)
     dl, dr, support = descriptors_and_support(img_left, img_right, p)
     return dl, dr, filter_support(support, p)
+
+
+def ielas_support_stage_batched(
+    img_left: torch.Tensor,     # (B, H, W)
+    img_right: torch.Tensor,
+    p: ElasParams,
+    tile: TileArg = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Wave-shaped support stage: (dl, dr, filtered support) with a leading
+    B, from one Sobel launch over both views of the wave and one support
+    launch; filtering runs frame by frame."""
+    dense_route(tile)
+    if img_left.dim() != 3:
+        raise ValueError(f"images must be (B, H, W), got {tuple(img_left.shape)}")
+    dl, dr = desc_mod.extract_views(img_left, img_right)
+    support = extract_support_grid_batched(dl, dr, p)
+    return dl, dr, torch.stack([filter_support(s, p) for s in support])
 
 
 def ielas_interpolate_stage(support: torch.Tensor, p: ElasParams) -> torch.Tensor:
@@ -87,28 +122,52 @@ def ielas_dense_stage(
     support_left: torch.Tensor,   # complete (interpolated) left-view support grid
     p: ElasParams,
     band_radius: Optional[int] = None,
+    tile: TileArg = None,
 ) -> torch.Tensor:
-    """Dense disparity for both views + post-processing -> final left map."""
+    """Dense disparity for both views + post-processing -> final left map.
+    ``band_radius`` narrows the plane-prior band; ``tile`` picks the route."""
     p = _narrow_band(p, band_radius)
     h, w = dl.shape[:2]
     mu_l, mu_r, gv_l, gv_r = _dense_priors(support_left, h, w, p)
-    disp_l, disp_r = dense_both_views(dl, dr, mu_l, mu_r, gv_l, gv_r, p)
+    disp_l, disp_r = dense_both_views(dl, dr, mu_l, mu_r, gv_l, gv_r, p, tile=tile)
     return postprocess(disp_l, disp_r, p)
 
 
-def ielas_disparity(img_left, img_right, p: ElasParams, device=None) -> torch.Tensor:
+def ielas_dense_stage_batched(
+    dl: torch.Tensor,             # (B, H, W, 16)
+    dr: torch.Tensor,
+    support_left: torch.Tensor,   # (B, GH, GW) complete support grids
+    p: ElasParams,
+    band_radius: Optional[int] = None,
+    tile: TileArg = None,
+) -> torch.Tensor:
+    """Wave-shaped dense stage: (B, H, W) final left maps.  The right-view
+    support and the grid vectors are built frame by frame, the priors of the
+    whole wave in one pass; dense matching is one kernel launch for the wave
+    and the median one more."""
+    p = _narrow_band(p, band_radius)
+    h, w = dl.shape[1:3]
+    mu_l, mu_r, gv_l, gv_r = _dense_priors(support_left, h, w, p)
+    disp_l, disp_r = dense_both_views_batched(dl, dr, mu_l, mu_r, gv_l, gv_r, p, tile=tile)
+    return postprocess(disp_l, disp_r, p)
+
+
+def ielas_disparity(
+    img_left, img_right, p: ElasParams, device=None, tile: TileArg = None
+) -> torch.Tensor:
     """iELAS on one stereo pair: (H, W) float32 left disparity, -1 where invalid.
 
     ``img_left`` / ``img_right`` are (H, W) arrays or tensors of grey
     levels; they are moved to ``device`` (default ``cuda:0``; raises if no
-    card is present).
+    card is present).  ``tile`` picks the dense route; the output is the
+    same for every route.
     """
     dev = resolve_device(device)
     il = torch.as_tensor(img_left, device=dev)
     ir = torch.as_tensor(img_right, device=dev)
-    dl, dr, support = ielas_support_stage(il, ir, p)
+    dl, dr, support = ielas_support_stage(il, ir, p, tile=tile)
     support = ielas_interpolate_stage(support, p)
-    return ielas_dense_stage(dl, dr, support, p)
+    return ielas_dense_stage(dl, dr, support, p, tile=tile)
 
 
 def disparity_error(

@@ -1,13 +1,18 @@
 """Post-processing: left/right consistency, gap interpolation, median filter
-(counterpart of ``repro/core/postprocess.py``)."""
+(counterpart of ``repro/core/postprocess.py``).
+
+Every function takes one map (H, W) or a wave of them (B, H, W); the
+median is the median kernel (:func:`repro_torch.kernels.median.median3x3`,
+one launch for the whole stack).
+"""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.descriptor import edge_pad
 from repro_torch.core.interpolation import nearest_valid_lr
 from repro_torch.core.params import ElasParams
-from repro_torch.kernels.ref import fma_f32, median9
+from repro_torch.kernels.median import median3x3
+from repro_torch.kernels.ref import fma_f32
 
 INVALID = -1.0
 
@@ -16,10 +21,10 @@ def lr_consistency(
     disp_left: torch.Tensor, disp_right: torch.Tensor, p: ElasParams
 ) -> torch.Tensor:
     """Invalidate pixels whose right-image counterpart disagrees."""
-    w = disp_left.shape[1]
-    u = torch.arange(w, dtype=torch.float32, device=disp_left.device)[None, :]
+    w = disp_left.shape[-1]
+    u = torch.arange(w, dtype=torch.float32, device=disp_left.device)
     ur = (u - disp_left).clamp(0, w - 1).to(torch.int64)
-    d_r = torch.gather(disp_right, 1, ur)
+    d_r = torch.gather(disp_right, -1, ur)
     ok = (
         (disp_left != INVALID)
         & (d_r != INVALID)
@@ -32,7 +37,7 @@ def gap_interpolation(disp: torch.Tensor, p: ElasParams) -> torch.Tensor:
     """Fill horizontal invalid runs of length <= ipol_gap_width: smooth gaps
     (end difference <= 5) linearly, discontinuities with the min."""
     val_l, dist_l, val_r, dist_r = nearest_valid_lr(disp)
-    w = disp.shape[1]
+    w = disp.shape[-1]
     fillable = (
         (disp == INVALID)
         & (dist_l < w + 1)
@@ -43,19 +48,6 @@ def gap_interpolation(disp: torch.Tensor, p: ElasParams) -> torch.Tensor:
     linear = fma_f32(t, val_r - val_l, val_l)       # the reference's XLA:CPU FMA
     fill = torch.where((val_l - val_r).abs() <= 5.0, linear, torch.minimum(val_l, val_r))
     return torch.where(fillable, fill, disp)
-
-
-def median3x3(disp: torch.Tensor) -> torch.Tensor:
-    """3x3 median over valid pixels (invalid neighbours take the centre
-    value); invalid pixels stay invalid.  Paeth's 19-op network."""
-    h, w = disp.shape
-    padded = edge_pad(disp, 1)
-    wins = []
-    for dy in range(3):
-        for dx in range(3):
-            win = padded[dy : dy + h, dx : dx + w]
-            wins.append(torch.where(win == INVALID, disp, win))
-    return torch.where(disp == INVALID, INVALID, median9(wins))
 
 
 def postprocess(disp_left: torch.Tensor, disp_right: torch.Tensor, p: ElasParams) -> torch.Tensor:

@@ -16,9 +16,10 @@ from repro_torch.kernels.ref import fma_f32
 
 
 def plane_prior(support: torch.Tensor, height: int, width: int, p: ElasParams) -> torch.Tensor:
-    """Per-pixel prior mu, (height, width) float32.  Pixels outside the node
-    hull extrapolate along the nearest cell's planes."""
-    gh, gw = support.shape
+    """Per-pixel prior mu, ([...,] height, width) float32, for one support
+    grid (GH, GW) or a stack of them (..., GH, GW) in one pass.  Pixels
+    outside the node hull extrapolate along the nearest cell's planes."""
+    gh, gw = support.shape[-2:]
     step = p.candidate_step
     off = step // 2
     dev = support.device
@@ -33,16 +34,22 @@ def plane_prior(support: torch.Tensor, height: int, width: int, p: ElasParams) -
 
     iy, fy = axis(height, gh)
     jx, fx = axis(width, gw)
-    d_tl = support[iy[:, None], jx[None, :]]
-    d_tr = support[iy[:, None], jx[None, :] + 1]
-    d_bl = support[iy[:, None] + 1, jx[None, :]]
-    d_br = support[iy[:, None] + 1, jx[None, :] + 1]
-    fyb = fy[:, None]
-    fxb = fx[None, :]
-    # Upper-right triangle (TL, TR, BR) and lower-left triangle (TL, BR, BL).
-    upper = fma_f32(fyb, d_br - d_tr, fma_f32(fxb, d_tr - d_tl, d_tl))
-    lower = fma_f32(fxb, d_br - d_bl, fma_f32(fyb, d_bl - d_tl, d_tl))
-    return torch.where(fxb >= fyb, upper, lower)
+    iy, jx = iy[:, None], jx[None, :]
+    fyb, fxb = fy[:, None], fx[None, :]
+    # The reference evaluates the upper-right triangle (TL, TR, BR),
+    #   fma(fy, d_br - d_tr, fma(fx, d_tr - d_tl, d_tl)),
+    # and the lower-left one (TL, BL, BR),
+    #   fma(fx, d_br - d_bl, fma(fy, d_bl - d_tl, d_tl)),
+    # and keeps one per pixel.  Choosing each pixel's operands first gives
+    # the same value from one pair of FMAs: the middle vertex is TR or BL,
+    # ``along`` the fraction from TL towards it, ``across`` the other one.
+    upper = fxb >= fyb
+    d_tl = support[..., iy, jx]
+    d_br = support[..., iy + 1, jx + 1]
+    d_mid = support[..., iy + (~upper).long(), jx + upper.long()]
+    along = torch.where(upper, fxb, fyb)
+    across = torch.where(upper, fyb, fxb)
+    return fma_f32(across, d_br - d_mid, fma_f32(along, d_mid - d_tl, d_tl))
 
 
 def right_view_support(support_left: torch.Tensor, p: ElasParams) -> torch.Tensor:

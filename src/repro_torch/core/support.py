@@ -50,10 +50,32 @@ def extract_support_grid(
     )
 
 
+def extract_support_grid_batched(
+    desc_left: torch.Tensor,    # (B, H, W, 16) int8
+    desc_right: torch.Tensor,   # (B, H, W, 16) int8
+    p: ElasParams,
+) -> torch.Tensor:
+    """Wave-shaped support grids (B, GH, GW) from one kernel launch; each
+    slot equals :func:`extract_support_grid` on that frame."""
+    if desc_left.dim() != 4:
+        raise ValueError(f"descriptors must be (B, H, W, 16), got {tuple(desc_left.shape)}")
+    h, w = desc_left.shape[1:3]
+    vs, _ = candidate_coords(h, w, p.candidate_step, desc_left.device)
+    return support_match(
+        desc_left[:, vs], desc_right[:, vs],
+        num_disp=p.num_disp,
+        step=p.candidate_step,
+        offset=p.candidate_step // 2,
+        support_texture=p.support_texture,
+        support_ratio=p.support_ratio,
+        lr_threshold=p.lr_threshold,
+        disp_min=p.disp_min,
+    )
+
+
 def descriptors_and_support(
     img_left: torch.Tensor, img_right: torch.Tensor, p: ElasParams
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Descriptors for both views + the (unfiltered) support grid."""
-    dl = desc_mod.extract(img_left)
-    dr = desc_mod.extract(img_right)
+    dl, dr = desc_mod.extract_views(img_left, img_right)
     return dl, dr, extract_support_grid(dl, dr, p)

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher and is
 compiled by ``nvcc`` alone (no PyTorch headers, so a build takes seconds)
 into ``build/repro_torch/<name>-<hash>.so`` at the repository root.  The
-hash covers the source and the flags, so an edited source is rebuilt.
+hash covers the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source or header is rebuilt.
 Nothing is built when a module is imported: the first wrapper call on a
 CUDA tensor (or :func:`build`) does it.
 """
@@ -45,8 +46,11 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the shared library for ``csrc/<name>.cu`` is (or will be) built."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -95,3 +99,13 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+def bind(name: str, symbol: str, argtypes: list):
+    """The C launcher ``symbol`` of ``csrc/<name>.cu``, typed: pointer and
+    stream arguments must be ``c_void_p`` (ctypes would pass a bare int as
+    32 bits), and every launcher returns its ``cudaError_t`` as an int."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn

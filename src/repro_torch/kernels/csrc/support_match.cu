@@ -13,7 +13,9 @@
 // 0.23 G for KITTI at D = 128.
 //
 // What the simple design does about it:
-//   * one block per candidate row; the row's two descriptor rows are staged
+//   * one block per candidate row (a 2-D grid: row, frame of the wave, so
+//     one launch covers a whole wave and B = 4 fills the 132 SMs that one
+//     KITTI frame's 75 rows leave idle); the row's two descriptor rows are staged
 //     once in shared memory (2 x W x 16 B, ~40 KB at KITTI width), stored in
 //     offset binary (byte ^ 0x80) so one __vsadu4 gives the exact SAD of 4
 //     signed bytes (|(a+128) - (b+128)| = |a - b|);
@@ -97,7 +99,7 @@ __device__ __forceinline__ bool unique(int min1, int min2, float ratio) {
 
 __global__ void __launch_bounds__(kThreads) support_match_kernel(
     const uint4* __restrict__ desc_l, const uint4* __restrict__ desc_r,
-    float* __restrict__ out, int w, int gw, int num_disp, int step, int offset,
+    float* __restrict__ out, int gh, int w, int gw, int num_disp, int step, int offset,
     int support_texture, float ratio, int lr_threshold, int disp_min) {
   extern __shared__ uint4 smem[];
   uint4* sl = smem;
@@ -105,7 +107,7 @@ __global__ void __launch_bounds__(kThreads) support_match_kernel(
   int* best_r = reinterpret_cast<int*>(smem + 2 * w);
   unsigned char* ok_r = reinterpret_cast<unsigned char*>(best_r + w);
 
-  const size_t row = blockIdx.x;
+  const size_t row = (size_t)blockIdx.y * gh + blockIdx.x;   // frame * gh + row
   for (int u = threadIdx.x; u < w; u += blockDim.x) {
     sl[u] = flip(desc_l[row * w + u]);
     sr[u] = flip(desc_r[row * w + u]);
@@ -148,11 +150,11 @@ __global__ void __launch_bounds__(kThreads) support_match_kernel(
 
 }  // namespace
 
-// Launch on `stream` over all `gh` candidate rows.  desc_l / desc_r are
-// (gh, w, 16) int8, 16-byte aligned; out is (gh, gw) float32.  Returns the
-// cudaError_t of the launch (0 on success).
+// Launch on `stream` over `batch` frames of `gh` candidate rows.  desc_l /
+// desc_r are (batch, gh, w, 16) int8, 16-byte aligned; out is (batch, gh,
+// gw) float32.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int ielas_support_match(const void* desc_l, const void* desc_r, void* out,
-                                   int gh, int w, int gw, int num_disp, int step,
+                                   int batch, int gh, int w, int gw, int num_disp, int step,
                                    int offset, int support_texture, float ratio,
                                    int lr_threshold, int disp_min, void* stream) {
   const size_t smem = (size_t)w * (2 * sizeof(uint4) + sizeof(int) + 1);
@@ -161,9 +163,9 @@ extern "C" int ielas_support_match(const void* desc_l, const void* desc_r, void*
         support_match_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  support_match_kernel<<<gh, kThreads, smem, (cudaStream_t)stream>>>(
+  support_match_kernel<<<dim3(gh, batch), kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const uint4*>(desc_l), static_cast<const uint4*>(desc_r),
-      static_cast<float*>(out), w, gw, num_disp, step, offset, support_texture, ratio,
+      static_cast<float*>(out), gh, w, gw, num_disp, step, offset, support_texture, ratio,
       lr_threshold, disp_min);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,18 @@
-"""Streaming dense matching kernel (counterpart of ``repro/kernels/dense_match.py``).
+"""Dense matching kernels (counterpart of ``repro/kernels/dense_match.py``).
 
-:func:`dense_match_stream` replaces ``dense_match_stream_pallas``: on CUDA
-tensors it launches the hand-written kernel in
-``csrc/dense_match_stream.cu`` (one launch for both views of a whole
-frame); on CPU tensors it runs the plain version,
-:func:`repro_torch.kernels.ref.dense_match_rows_stream_ref`.
+* :func:`dense_match_stream` replaces ``dense_match_stream_pallas``: the
+  gather-free scan over d, with the candidate set as grid-vector bitmasks
+  OR the plane-prior band; the kernel is ``csrc/dense_match_stream.cu``,
+  the plain version :func:`repro_torch.kernels.ref.dense_match_rows_stream_ref`.
+* :func:`dense_match_candidates` replaces ``dense_match_pallas``: the energy
+  over a per-pixel candidate tensor (the paper's C = K + 2R + 1 window); the
+  kernel is ``csrc/dense_match_windowed.cu``, the plain version
+  :func:`repro_torch.kernels.ref.dense_match_rows_windowed_ref`.
+
+On CUDA tensors each launches its kernel once for both views of a frame,
+or of every frame of a wave (a leading batch axis); on CPU tensors it runs
+the plain version.  :func:`xla_exp_log` evaluates the kernels' float32 exp
+and log on the card, so they can be held against the plain helpers.
 """
 from __future__ import annotations
 
@@ -15,33 +23,84 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-# Number of kernel launches since the last reset (CPU calls do not count).
+# Number of launches of each kernel since the last reset (CPU calls do not
+# count): the streaming kernel's, and the candidate-window kernel's.
 launches = 0
+windowed_launches = 0
 
 
 # ielas_dense_match_stream(desc_l, desc_r, mu_l, mu_r, gmask_l, gmask_r, out_l,
-#     out_r, h, w, cw, num_disp, disp_min, plane_radius, cell_px, beta, gamma,
-#     two_s2, match_texture, stream)
-ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float] * 3 + [
+#     out_r, batch, h, w, cw, num_disp, disp_min, plane_radius, cell_px, beta,
+#     gamma, two_s2, match_texture, stream)
+ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3 + [
     ctypes.c_int, ctypes.c_void_p,
 ]
+# ielas_dense_match_windowed(desc_l, desc_r, mu_l, mu_r, cand_l, cand_r, out_l,
+#     out_r, batch, h, w, c, num_disp, disp_min, beta, gamma, two_s2,
+#     match_texture, stream)
+WINDOWED_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + [
+    ctypes.c_int, ctypes.c_void_p,
+]
+# ielas_xla_exp_log(x, ex, lg, n, stream)
+EXP_LOG_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
 
 
 @functools.cache
 def _kernel():
-    fn = _build.load("dense_match_stream").ielas_dense_match_stream
-    fn.argtypes = ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.bind("dense_match_stream", "ielas_dense_match_stream", ARGTYPES)
+
+
+@functools.cache
+def _windowed_kernel():
+    return _build.bind("dense_match_windowed", "ielas_dense_match_windowed", WINDOWED_ARGTYPES)
+
+
+@functools.cache
+def _exp_log_kernel():
+    return _build.bind("dense_match_stream", "ielas_xla_exp_log", EXP_LOG_ARGTYPES)
+
+
+def _check_common(desc_l, desc_r, mu_l, mu_r, num_disp, disp_min):
+    """Shape and type checks shared by both dense kernels; returns
+    (leading batch dims, H, W)."""
+    if desc_l.dim() not in (3, 4) or desc_l.shape[-1] != 16 or desc_r.shape != desc_l.shape:
+        raise ValueError(
+            f"descriptors must be two ([B,] H, W, 16), got {tuple(desc_l.shape)}, "
+            f"{tuple(desc_r.shape)}"
+        )
+    *lead, h, w, _ = desc_l.shape
+    if mu_l.shape != (*lead, h, w) or mu_r.shape != mu_l.shape:
+        raise ValueError(f"priors must be ([B,] H, W) = {(*lead, h, w)}")
+    if desc_l.dtype != torch.int8 or desc_r.dtype != torch.int8:
+        raise TypeError("descriptors must be int8")
+    if mu_l.dtype != torch.float32 or mu_r.dtype != torch.float32:
+        raise TypeError("priors must be float32")
+    if num_disp < 1 or disp_min < 0:
+        raise ValueError(f"bad search range: num_disp={num_disp} disp_min={disp_min}")
+    return lead, h, w
+
+
+def _device_of(inputs) -> torch.device:
+    device = inputs[0].device
+    if any(t.device != device for t in inputs):
+        raise ValueError("all inputs must be on one device")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    if device.type == "cuda" and (
+        not all(t.is_contiguous() for t in inputs)
+        or inputs[0].data_ptr() % 16 or inputs[1].data_ptr() % 16
+    ):
+        raise ValueError("inputs must be contiguous, descriptors 16-byte aligned")
+    return device
 
 
 def dense_match_stream(
-    desc_l: torch.Tensor,       # (H, W, 16) int8
-    desc_r: torch.Tensor,       # (H, W, 16) int8
-    mu_l: torch.Tensor,         # (H, W) float32
-    mu_r: torch.Tensor,         # (H, W) float32
-    gmask_l: torch.Tensor,      # (H, CW, D) bool grid-vector bitmask rows
-    gmask_r: torch.Tensor,      # (H, CW, D) bool
+    desc_l: torch.Tensor,       # ([B,] H, W, 16) int8
+    desc_r: torch.Tensor,       # ([B,] H, W, 16) int8
+    mu_l: torch.Tensor,         # ([B,] H, W) float32
+    mu_r: torch.Tensor,         # ([B,] H, W) float32
+    gmask_l: torch.Tensor,      # ([B,] H, CW, D) bool grid-vector bitmask rows
+    gmask_r: torch.Tensor,      # ([B,] H, CW, D) bool
     *,
     num_disp: int,
     disp_min: int,
@@ -52,52 +111,40 @@ def dense_match_stream(
     sigma: float,
     match_texture: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(disp_l, disp_r), each (H, W) float32 with INVALID = -1."""
-    if desc_l.dim() != 3 or desc_l.shape[-1] != 16 or desc_r.shape != desc_l.shape:
-        raise ValueError(
-            f"descriptors must be two (H, W, 16), got {tuple(desc_l.shape)}, {tuple(desc_r.shape)}"
-        )
-    h, w, _ = desc_l.shape
-    if mu_l.shape != (h, w) or mu_r.shape != (h, w):
-        raise ValueError(f"priors must be (H, W) = {(h, w)}")
-    if gmask_l.dim() != 3 or gmask_l.shape[0] != h or gmask_l.shape[2] != num_disp \
-            or gmask_r.shape != gmask_l.shape or gmask_l.shape[1] < 1:
-        raise ValueError(f"bitmasks must be (H, CW, D) = ({h}, CW, {num_disp})")
-    if desc_l.dtype != torch.int8 or desc_r.dtype != torch.int8:
-        raise TypeError("descriptors must be int8")
-    if mu_l.dtype != torch.float32 or mu_r.dtype != torch.float32:
-        raise TypeError("priors must be float32")
+    """(disp_l, disp_r), each ([B,] H, W) float32 with INVALID = -1."""
+    lead, h, w = _check_common(desc_l, desc_r, mu_l, mu_r, num_disp, disp_min)
+    if gmask_l.dim() != len(lead) + 3 or gmask_l.shape[: len(lead) + 1] != (*lead, h) \
+            or gmask_l.shape[-1] != num_disp or gmask_r.shape != gmask_l.shape \
+            or gmask_l.shape[-2] < 1:
+        raise ValueError(f"bitmasks must be ([B,] H, CW, D) = ({(*lead, h)}, CW, {num_disp})")
     if gmask_l.dtype != torch.bool or gmask_r.dtype != torch.bool:
         raise TypeError("bitmasks must be bool")
-    if num_disp < 1 or disp_min < 0 or plane_radius < 0 or cell_px < 1:
-        raise ValueError(
-            f"bad search geometry: num_disp={num_disp} disp_min={disp_min} "
-            f"plane_radius={plane_radius} cell_px={cell_px}"
-        )
+    if plane_radius < 0 or cell_px < 1:
+        raise ValueError(f"bad candidate geometry: plane_radius={plane_radius} cell_px={cell_px}")
     inputs = (desc_l, desc_r, mu_l, mu_r, gmask_l, gmask_r)
-    device = desc_l.device
-    if any(t.device != device for t in inputs):
-        raise ValueError("all inputs must be on one device")
+    device = _device_of(inputs)
+    batch = lead[0] if lead else 1
     kwargs = dict(
         num_disp=num_disp, disp_min=disp_min, plane_radius=plane_radius, cell_px=cell_px,
         beta=beta, gamma=gamma, sigma=sigma, match_texture=match_texture,
     )
     if device.type == "cpu":
-        return ref.dense_match_rows_stream_ref(*inputs, **kwargs)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
-    if (not all(t.is_contiguous() for t in inputs)
-            or desc_l.data_ptr() % 16 or desc_r.data_ptr() % 16):
-        raise ValueError("inputs must be contiguous, descriptors 16-byte aligned")
-    out_l = torch.empty((h, w), dtype=torch.float32, device=device)
-    out_r = torch.empty((h, w), dtype=torch.float32, device=device)
+        n = batch * h
+        out = ref.dense_match_rows_stream_ref(
+            desc_l.reshape(n, w, 16), desc_r.reshape(n, w, 16),
+            mu_l.reshape(n, w), mu_r.reshape(n, w),
+            gmask_l.reshape(n, -1, num_disp), gmask_r.reshape(n, -1, num_disp), **kwargs,
+        )
+        return tuple(o.reshape(*lead, h, w) for o in out)
+    out_l = torch.empty((*lead, h, w), dtype=torch.float32, device=device)
+    out_r = torch.empty_like(out_l)
     if out_l.numel() == 0:
         return out_l, out_r
     fn = _kernel()
     with torch.cuda.device(device):
         err = fn(
             *(t.data_ptr() for t in (*inputs, out_l, out_r)),
-            h, w, gmask_l.shape[1], num_disp, disp_min, plane_radius, cell_px,
+            batch, h, w, gmask_l.shape[-2], num_disp, disp_min, plane_radius, cell_px,
             beta, gamma, 2.0 * sigma * sigma, match_texture,
             torch.cuda.current_stream(device).cuda_stream,
         )
@@ -106,3 +153,76 @@ def dense_match_stream(
     global launches
     launches += 1
     return out_l, out_r
+
+
+def dense_match_candidates(
+    desc_l: torch.Tensor,       # ([B,] H, W, 16) int8
+    desc_r: torch.Tensor,       # ([B,] H, W, 16) int8
+    mu_l: torch.Tensor,         # ([B,] H, W) float32
+    mu_r: torch.Tensor,         # ([B,] H, W) float32
+    cand_l: torch.Tensor,       # ([B,] H, W, C) int32 candidate disparities
+    cand_r: torch.Tensor,       # ([B,] H, W, C) int32
+    *,
+    num_disp: int,
+    disp_min: int,
+    beta: float,
+    gamma: float,
+    sigma: float,
+    match_texture: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(disp_l, disp_r), each ([B,] H, W) float32 with INVALID = -1: the
+    minimum-energy candidate of each pixel (the smallest value on ties)."""
+    lead, h, w = _check_common(desc_l, desc_r, mu_l, mu_r, num_disp, disp_min)
+    if cand_l.dim() != len(lead) + 3 or cand_l.shape[:-1] != (*lead, h, w) \
+            or cand_r.shape != cand_l.shape or cand_l.shape[-1] < 1:
+        raise ValueError(f"candidates must be ([B,] H, W, C) = ({(*lead, h, w)}, C)")
+    if cand_l.dtype != torch.int32 or cand_r.dtype != torch.int32:
+        raise TypeError("candidates must be int32")
+    inputs = (desc_l, desc_r, mu_l, mu_r, cand_l, cand_r)
+    device = _device_of(inputs)
+    batch = lead[0] if lead else 1
+    c = cand_l.shape[-1]
+    kwargs = dict(num_disp=num_disp, disp_min=disp_min, beta=beta, gamma=gamma, sigma=sigma,
+                  match_texture=match_texture)
+    if device.type == "cpu":
+        n = batch * h
+        out = ref.dense_match_rows_windowed_ref(
+            desc_l.reshape(n, w, 16), desc_r.reshape(n, w, 16),
+            mu_l.reshape(n, w), mu_r.reshape(n, w),
+            cand_l.reshape(n, w, c), cand_r.reshape(n, w, c), **kwargs,
+        )
+        return tuple(o.reshape(*lead, h, w) for o in out)
+    out_l = torch.empty((*lead, h, w), dtype=torch.float32, device=device)
+    out_r = torch.empty_like(out_l)
+    if out_l.numel() == 0:
+        return out_l, out_r
+    fn = _windowed_kernel()
+    with torch.cuda.device(device):
+        err = fn(
+            *(t.data_ptr() for t in (*inputs, out_l, out_r)),
+            batch, h, w, c, num_disp, disp_min, beta, gamma, 2.0 * sigma * sigma,
+            match_texture, torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"dense_match_windowed kernel launch failed: cudaError_t {err}")
+    global windowed_launches
+    windowed_launches += 1
+    return out_l, out_r
+
+
+def xla_exp_log(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dense kernels' float32 (exp(x), log(x)) for a float32 tensor on
+    the card (log only meaningful for positive normal x).  No plain
+    version: on the CPU the same functions are ``ref.xla_exp_f32`` and
+    ``ref.xla_log_f32``."""
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        raise ValueError("xla_exp_log takes a float32 CUDA tensor")
+    x = x.contiguous()
+    ex, lg = torch.empty_like(x), torch.empty_like(x)
+    if x.numel():
+        with torch.cuda.device(x.device):
+            err = _exp_log_kernel()(x.data_ptr(), ex.data_ptr(), lg.data_ptr(), x.numel(),
+                                    torch.cuda.current_stream(x.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"xla_exp_log kernel launch failed: cudaError_t {err}")
+    return ex, lg

@@ -15,26 +15,132 @@ one sweep of ``d`` serves both views.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
-
-from repro_torch.core.descriptor import descriptor_texture
 
 BIG = 1 << 28
 BIGF = 1e9
 INVALID = -1.0
 
 
-def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` for float32 tensors, rounded once as a fused multiply-add.
+def descriptor_texture(desc: torch.Tensor) -> torch.Tensor:
+    """Sum of absolute descriptor entries -- the libelas texture measure."""
+    return desc.to(torch.int32).abs().sum(dim=-1, dtype=torch.int32)
 
-    The reference's XLA:CPU lowering contracts ``c + a * b`` into an FMA; the
-    port reproduces that rounding to stay bit-exact.  The product of two
-    float32 values is exact in float64, and the float64 sum is exact whenever
-    the operands' bits span at most 53 places (always so at the magnitudes of
-    disparities and sub-pixel fractions), so rounding it to float32 gives the
-    FMA's result on every device.
+
+def _f32(v) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.float32)
+
+
+def _f64(v):
+    """A float32 operand widened to float64: a tensor is converted on its
+    device; a Python number is rounded to float32 and stays a number, so it
+    costs no tensor and no launch."""
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.float32).double()
+    return float(np.float32(v))
+
+
+def fma_f32(a, b, c) -> torch.Tensor:
+    """``a * b + c`` for float32 operands, rounded once as a fused multiply-add.
+
+    XLA:CPU contracts ``c + a * b`` into an FMA, and the port reproduces
+    that rounding to stay bit-exact.  The product of two float32 values is
+    exact in float64; the float64 sum's rounding error is recovered exactly
+    (TwoSum) and folded into the last bit (round to odd), so the one
+    rounding to float32 that follows is the FMA's correctly rounded result
+    on every input -- the same bits as CUDA's ``__fmaf_rn``.  At least one
+    operand is a tensor.  On the card each step is one small kernel (18
+    for three tensor operands), so callers fold their FMAs into as few
+    calls as they can.
     """
-    return (a.double() * b.double() + c.double()).float()
+    a, b, c = _f64(a), _f64(b), _f64(c)
+    prod = a * b
+    s = prod + c
+    t = s - prod
+    err = (prod - (s - t)) + (c - t)
+    # Round to odd: an inexact sum with an even last bit moves one ulp
+    # toward the exact value (err * inf is +-inf; where err == 0 it is NaN,
+    # and that lane keeps s).
+    fix = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    return torch.where(fix, torch.nextafter(s, err * float("inf")), s).float()
+
+
+# --------------------------------------------------------------------------
+# XLA:CPU's float32 exp and log
+# --------------------------------------------------------------------------
+# XLA:CPU evaluates float32 exp/log with the Cephes polynomials as Eigen
+# writes them.  Every step below is one float32 operation (an FMA where
+# Eigen uses one), in Eigen's order: a different order, or separate
+# multiply and add, changes the last bit of up to a few percent of the
+# results, and a near-tie between two dense candidates then resolves
+# differently from the reference.  csrc/xla_math.cuh is the same sequence
+# for the card (``__fmaf_rn``, built with ``--fmad=false``).
+_EXP_HI = 88.3762626647950
+_EXP_LO = -88.3762626647949
+_EXP_POLY = (1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2, 1.6666665459e-1,
+             5.0000001201e-1)
+_LN2_HI = 0.693359375
+_LN2_LO = -2.12194440e-4
+_TINY = 1.17549435e-38              # the smallest normal float32
+
+
+def _pow2(n: torch.Tensor) -> torch.Tensor:
+    """2**n as float32, built from its bits (n in [-126, 127])."""
+    return ((n + 127) << 23).to(torch.int32).view(torch.float32)
+
+
+def xla_exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 ``exp``, bit for bit (Cephes ``expf`` as Eigen's
+    ``pexp_float`` computes it)."""
+    x = x.clamp(_EXP_LO, _EXP_HI)
+    fx = torch.floor(fma_f32(x, 1.44269504088896341, 0.5))
+    r = fma_f32(fx, -_LN2_HI, x)
+    r = fma_f32(fx, -_LN2_LO, r)
+    z = r * r
+    y = torch.full_like(x, 1.9875691500e-4)
+    for coef in _EXP_POLY:
+        y = fma_f32(y, r, coef)
+    y = fma_f32(y, z, r) + 1
+    # ldexp(y, fx) in two exact steps; XLA:CPU flushes a subnormal result
+    # to zero (for x below about -87.34).
+    n = fx.to(torch.int32)
+    half = n >> 1
+    out = y * _pow2(half) * _pow2(n - half)
+    return torch.where(out < _f32(_TINY), 0.0, out)
+
+
+def xla_log_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 ``log``, bit for bit, for positive normal ``x``
+    (Cephes ``logf`` as Eigen's ``plog_float`` computes it)."""
+    m, e = torch.frexp(x)                       # x = m * 2**e, m in [0.5, 1)
+    e = e.to(torch.float32)
+    low = m < _f32(0.707106781186547524)
+    e = torch.where(low, e - 1, e)
+    x = torch.where(low, (m - 1) + m, m - 1)
+    x2 = x * x
+    x3 = x2 * x
+    y = fma_f32(fma_f32(x, 7.0376836292e-2, -1.1514610310e-1), x, 1.1676998740e-1)
+    y1 = fma_f32(fma_f32(x, -1.2420140846e-1, 1.4249322787e-1), x, -1.6668057665e-1)
+    y2 = fma_f32(fma_f32(x, 2.0000714765e-1, -2.4999993993e-1), x, 3.3333331174e-1)
+    y = fma_f32(y, x3, y1)
+    y = fma_f32(y, x3, y2)
+    y = fma_f32(y, x3, e * _f32(_LN2_LO))
+    x = fma_f32(x2, -0.5, x) + y
+    return fma_f32(e, _LN2_HI, x)
+
+
+def dense_energy(
+    sad: torch.Tensor, d, mu: torch.Tensor, *, beta: float, gamma: float,
+    two_s2: torch.Tensor,
+) -> torch.Tensor:
+    """The dense energy ``beta * SAD - log(gamma + exp(-(d - mu)^2 / 2 sigma^2))``
+    in float32, rounded as XLA:CPU rounds it: XLA's exp and log, and the
+    final ``beta * SAD + prior`` fused into one FMA.  ``two_s2`` is
+    ``2 sigma^2`` as a tensor on ``mu``'s device (a true division there)."""
+    diff = d - mu
+    prior = -xla_log_f32(gamma + xla_exp_f32(-(diff * diff) / two_s2))
+    return fma_f32(beta, sad.float(), prior)
 
 
 def _sad_rows(desc_l: torch.Tensor, desc_r: torch.Tensor):
@@ -278,14 +384,12 @@ def dense_match_rows_stream_ref(
 
         beta * SAD - log(gamma + exp(-(d - mu)^2 / (2 sigma^2)))
 
-    (float32, each operation rounded on its own) is folded into running
-    (best energy, best d) registers with a strict ``<``.  ``exp`` and
-    ``log`` are evaluated in float64 and rounded to float32: that makes them
-    correctly rounded on every device (float32 libraries, XLA's among them,
-    are not, and differ from each other in the last bit), so the CPU, the
-    card's plain version and the CUDA kernel agree bit for bit.  Returns
-    (disp_l, disp_r), each (bh, W) float32 with INVALID where no candidate
-    was valid or the texture is below ``match_texture``.
+    (float32, rounded as XLA:CPU rounds it: :func:`dense_energy`) is folded
+    into running (best energy, best d) registers with a strict ``<``.  The
+    energy is computed only where the mask holds (elsewhere it is BIGF,
+    which never wins).  Returns (disp_l, disp_r), each (bh, W) float32 with
+    INVALID where no candidate was valid or the texture is below
+    ``match_texture``.
     """
     bh, w, _ = desc_l.shape
     dev = desc_l.device
@@ -308,11 +412,9 @@ def dense_match_rows_stream_ref(
         best_e, best_d = state
         df = float(d)
         mask = upsample_cells(gcells, w, cell_px) | ((band[0] <= df) & (band[1] >= df))
-        diff = df - mu
-        x = (-(diff * diff) / two_s2).double()
-        prior = -torch.log((gamma + torch.exp(x).float()).double()).float()
-        e = beta * sad.float() + prior
-        e = torch.where(mask & valid, e, BIGF)
+        mask &= valid
+        e = torch.full_like(best_e, BIGF)
+        e[mask] = dense_energy(sad[mask], df, mu[mask], beta=beta, gamma=gamma, two_s2=two_s2)
         better = e < best_e
         return torch.where(better, e, best_e), torch.where(better, d, best_d)
 
@@ -337,8 +439,97 @@ def dense_match_rows_stream_ref(
 
 
 # --------------------------------------------------------------------------
-# median
+# candidate-window dense matching
 # --------------------------------------------------------------------------
+def dense_match_rows_windowed_ref(
+    desc_l: torch.Tensor,       # (bh, W, 16) int8
+    desc_r: torch.Tensor,       # (bh, W, 16) int8
+    mu_l: torch.Tensor,         # (bh, W) float32
+    mu_r: torch.Tensor,         # (bh, W) float32
+    cand_l: torch.Tensor,       # (bh, W, C) int32 candidate disparities
+    cand_r: torch.Tensor,       # (bh, W, C) int32
+    *,
+    num_disp: int,
+    disp_min: int,
+    beta: float,
+    gamma: float,
+    sigma: float,
+    match_texture: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Candidate-window dense matching for both views: the energy at each of
+    a pixel's C candidate disparities, minimised.
+
+    One formulation for the reference's three ``gather_impl`` names (take,
+    onehot, slice), which are bitwise equal by construction: a loop over the
+    C candidate slots, each gathering the matching descriptors at
+    ``u - d`` (left view) or ``u + d`` (right view).  A slot whose matching
+    column is off the image has energy BIGF.  At the minimum energy the
+    smallest candidate VALUE wins (the reference's argmin-over-d tie-break;
+    ``disp_min + num_disp``, past the end of the value domain, is the "no
+    slot" sentinel), and ``valid = (emin < BIGF) & (texture >=
+    match_texture)``.  Returns (disp_l, disp_r), each (bh, W) float32.
+    """
+    bh, w, _ = desc_l.shape
+    dev = desc_l.device
+    dl = desc_l.to(torch.int32)
+    dr = desc_r.to(torch.int32)
+    u = torch.arange(w, device=dev)[None, :]
+    rows = torch.arange(bh, device=dev)[:, None]
+    two_s2 = torch.tensor(2.0 * sigma * sigma, dtype=torch.float32, device=dev)
+
+    def one_view(src, dst, mu, cands, sign):
+        emin = torch.full((bh, w), BIGF, dtype=torch.float32, device=dev)
+        best = torch.full((bh, w), disp_min + num_disp, dtype=torch.int32, device=dev)
+        for c in range(cands.shape[-1]):
+            d = cands[..., c]
+            uc = u + sign * d
+            inside = (uc >= 0) & (uc < w)
+            sad = (src - dst[rows, uc.clamp(0, w - 1)]).abs().sum(dim=-1, dtype=torch.int32)
+            e = torch.full_like(emin, BIGF)
+            e[inside] = dense_energy(sad[inside], d[inside].float(), mu[inside], beta=beta,
+                                     gamma=gamma, two_s2=two_s2)
+            take = (e < emin) | ((e == emin) & (d < best))
+            best = torch.where(take, d, best)
+            emin = torch.minimum(e, emin)
+        valid = (emin < BIGF) & (descriptor_texture(src) >= match_texture)
+        return torch.where(valid, best.float(), INVALID)
+
+    return one_view(dl, dr, mu_l, cand_l, -1), one_view(dr, dl, mu_r, cand_r, +1)
+
+
+# --------------------------------------------------------------------------
+# 3x3 stencils: Sobel and median
+# --------------------------------------------------------------------------
+def edge_row_views(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Edge-pad the last two axes of ``x`` (..., H, W) by one (clamped
+    indices, the values of ``jnp.pad(mode="edge")``) and return the three
+    row-shifted views (rows y-1, y, y+1), each (..., H, W + 2)."""
+    h, w = x.shape[-2:]
+    rows = torch.arange(-1, h + 1, device=x.device).clamp_(0, h - 1)
+    cols = torch.arange(-1, w + 1, device=x.device).clamp_(0, w - 1)
+    padded = x[..., rows, :][..., cols]
+    return padded[..., 0:h, :], padded[..., 1 : h + 1, :], padded[..., 2 : h + 2, :]
+
+
+def sobel_rows_ref(
+    top: torch.Tensor, mid: torch.Tensor, bot: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sobel du/dv from three row-shifted (..., W + 2) int32 views of the
+    edge-padded image: (gx, gy) int8 (..., W), ``clip(g // 4, -128, 127)``
+    with floor division."""
+    w = top.shape[-1] - 2
+    l0, c0, r0 = top[..., :w], top[..., 1 : w + 1], top[..., 2 : w + 2]
+    l1, r1 = mid[..., :w], mid[..., 2 : w + 2]
+    l2, c2, r2 = bot[..., :w], bot[..., 1 : w + 1], bot[..., 2 : w + 2]
+    gx = (l0 + 2 * l1 + l2) - (r0 + 2 * r1 + r2)
+    gy = (l0 + 2 * c0 + r0) - (l2 + 2 * c2 + r2)
+
+    def pack(g):
+        return torch.div(g, 4, rounding_mode="floor").clamp(-128, 127).to(torch.int8)
+
+    return pack(gx), pack(gy)
+
+
 def median9(vals: list) -> torch.Tensor:
     """Median of 9 elementwise tensors via Paeth's 19-op min/max network
     (value-identical to ``sort(...)[..., 4]``)."""
@@ -355,3 +546,14 @@ def median9(vals: list) -> torch.Tensor:
     for i, j in pairs:
         v[i], v[j] = torch.minimum(v[i], v[j]), torch.maximum(v[i], v[j])
     return v[4]
+
+
+def median3x3_rows_ref(top: torch.Tensor, mid: torch.Tensor, bot: torch.Tensor) -> torch.Tensor:
+    """Valid-aware 3x3 median from three row-shifted (..., W + 2) float32
+    views of the edge-padded map: invalid (-1) neighbours take the centre's
+    value, and an invalid centre stays invalid."""
+    w = top.shape[-1] - 2
+    centre = mid[..., 1 : w + 1]
+    wins = [view[..., dx : dx + w] for view in (top, mid, bot) for dx in range(3)]
+    wins = [torch.where(win == INVALID, centre, win) for win in wins]
+    return torch.where(centre == INVALID, INVALID, median9(wins))

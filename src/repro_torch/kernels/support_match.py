@@ -2,7 +2,8 @@
 
 :func:`support_match` replaces ``support_match_pallas``: on a CUDA tensor it
 launches the hand-written kernel in ``csrc/support_match.cu`` (one launch for
-all candidate rows of a frame); on a CPU tensor it runs the plain version,
+all candidate rows of a frame, or of every frame of a wave); on a CPU tensor
+it runs the plain version,
 :func:`repro_torch.kernels.ref.support_match_rows_streaming`.
 """
 from __future__ import annotations
@@ -18,24 +19,21 @@ from repro_torch.kernels import _build, ref
 launches = 0
 
 
-# ielas_support_match(desc_l, desc_r, out, gh, w, gw, num_disp, step, offset,
-#                     support_texture, ratio, lr_threshold, disp_min, stream)
-ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
+# ielas_support_match(desc_l, desc_r, out, batch, gh, w, gw, num_disp, step,
+#                     offset, support_texture, ratio, lr_threshold, disp_min, stream)
+ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
 
 
 @functools.cache
 def _kernel():
-    fn = _build.load("support_match").ielas_support_match
-    fn.argtypes = ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.bind("support_match", "ielas_support_match", ARGTYPES)
 
 
 def support_match(
-    desc_l_rows: torch.Tensor,  # (GH, W, 16) int8 -- left descriptors, candidate rows
-    desc_r_rows: torch.Tensor,  # (GH, W, 16) int8
+    desc_l_rows: torch.Tensor,  # ([B,] GH, W, 16) int8 -- left descriptors, candidate rows
+    desc_r_rows: torch.Tensor,  # ([B,] GH, W, 16) int8
     *,
     num_disp: int,
     step: int,
@@ -45,9 +43,15 @@ def support_match(
     lr_threshold: int,
     disp_min: int,
 ) -> torch.Tensor:
-    """(GH, W // step) float32 support disparities (INVALID = -1)."""
-    if desc_l_rows.dim() != 3 or desc_l_rows.shape[-1] != 16:
-        raise ValueError(f"descriptor rows must be (GH, W, 16), got {tuple(desc_l_rows.shape)}")
+    """([B,] GH, W // step) float32 support disparities (INVALID = -1).
+
+    A leading batch axis holds the frames of a wave: each frame's grid
+    equals the one its rows alone give (the search is row by row).
+    """
+    if desc_l_rows.dim() not in (3, 4) or desc_l_rows.shape[-1] != 16:
+        raise ValueError(
+            f"descriptor rows must be ([B,] GH, W, 16), got {tuple(desc_l_rows.shape)}"
+        )
     if desc_r_rows.shape != desc_l_rows.shape:
         raise ValueError(
             f"view shapes differ: {tuple(desc_l_rows.shape)} vs {tuple(desc_r_rows.shape)}"
@@ -63,23 +67,28 @@ def support_match(
         support_ratio=support_ratio, lr_threshold=lr_threshold, disp_min=disp_min,
     )
     device = desc_l_rows.device
+    *lead, gh, w, _ = desc_l_rows.shape
+    batch = lead[0] if lead else 1
+    gw = w // step
     if device.type == "cpu":
-        return ref.support_match_rows_streaming(desc_l_rows, desc_r_rows, **kwargs)
+        out = ref.support_match_rows_streaming(
+            desc_l_rows.reshape(batch * gh, w, 16), desc_r_rows.reshape(batch * gh, w, 16),
+            **kwargs,
+        )
+        return out.reshape(*lead, gh, gw)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     for t in (desc_l_rows, desc_r_rows):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("descriptor rows must be contiguous and 16-byte aligned")
-    gh, w, _ = desc_l_rows.shape
-    gw = w // step
-    out = torch.empty((gh, gw), dtype=torch.float32, device=device)
+    out = torch.empty((*lead, gh, gw), dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out
     fn = _kernel()
     with torch.cuda.device(device):
         err = fn(
             desc_l_rows.data_ptr(), desc_r_rows.data_ptr(), out.data_ptr(),
-            gh, w, gw, num_disp, step, offset, support_texture,
+            batch, gh, w, gw, num_disp, step, offset, support_texture,
             support_ratio, lr_threshold, disp_min,
             torch.cuda.current_stream(device).cuda_stream,
         )

@@ -1,5 +1,5 @@
-"""The port stands alone: nothing under src/repro_torch/ or in chip_smoke.py
-imports jax or the reference package, and importing the port loads no jax."""
+"""The port stands alone: nothing under src/repro_torch/, in chip_smoke.py or
+in stage_profile.py imports jax or the reference package, and importing the port loads no jax."""
 import ast
 import os
 import subprocess
@@ -9,7 +9,9 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "stage_profile.py",
+]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -31,8 +33,9 @@ def _imported_roots(path: Path) -> set[str]:
 
 def test_port_files_found():
     assert len(PORT_FILES) > 10
-    assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "support_match.cu").exists()
-    assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "dense_match_stream.cu").exists()
+    for name in ("support_match", "dense_match_stream", "dense_match_windowed", "sobel",
+                 "median"):
+        assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / f"{name}.cu").exists()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -45,8 +48,9 @@ def test_import_leaves_jax_unloaded():
     code = (
         "import sys\n"
         "import repro_torch.core.pipeline, repro_torch.kernels.support_match, "
-        "repro_torch.kernels.dense_match, repro_torch.configs.elas_stereo, "
-        "repro_torch.data.stereo\n"
+        "repro_torch.kernels.dense_match, repro_torch.kernels.sobel, "
+        "repro_torch.kernels.median, repro_torch.core.tiling, "
+        "repro_torch.configs.elas_stereo, repro_torch.data.stereo\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -8,28 +8,47 @@ on a machine with a card and without JAX:
 import ctypes
 import re
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import dense_match as dense_kernel
+from repro_torch.kernels import median as median_kernel
+from repro_torch.kernels import sobel as sobel_kernel
 from repro_torch.kernels import support_match as support_kernel
-from torch_kernel_cases import DENSE_CASES, SUPPORT_CASES, dense_inputs, support_inputs
+from torch_kernel_cases import (
+    DENSE_CASES,
+    MEDIAN_CASES,
+    SOBEL_CASES,
+    SUPPORT_CASES,
+    WINDOWED_CASES,
+    dense_inputs,
+    median_map,
+    sobel_image,
+    support_inputs,
+    windowed_inputs,
+)
 
-_C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
+_C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float,
+            "long long": ctypes.c_longlong}
 
 
-@pytest.mark.parametrize("source,symbol,module", [
-    ("support_match", "ielas_support_match", support_kernel),
-    ("dense_match_stream", "ielas_dense_match_stream", dense_kernel),
+@pytest.mark.parametrize("source,symbol,argtypes", [
+    ("support_match", "ielas_support_match", support_kernel.ARGTYPES),
+    ("dense_match_stream", "ielas_dense_match_stream", dense_kernel.ARGTYPES),
+    ("dense_match_stream", "ielas_xla_exp_log", dense_kernel.EXP_LOG_ARGTYPES),
+    ("dense_match_windowed", "ielas_dense_match_windowed", dense_kernel.WINDOWED_ARGTYPES),
+    ("sobel", "ielas_sobel", sobel_kernel.ARGTYPES),
+    ("median", "ielas_median3x3", median_kernel.ARGTYPES),
 ])
-def test_binding_matches_launcher_signature(source, symbol, module):
+def test_binding_matches_launcher_signature(source, symbol, argtypes):
     text = (_build.CSRC / f"{source}.cu").read_text()
     m = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", text)
     assert m, f"no extern C launcher {symbol} in csrc/{source}.cu"
     params = [" ".join(p.split()[:-1]).replace("const ", "").replace(" *", "*")
               for p in m.group(1).split(",")]
-    assert [_C_TYPES[p] for p in params] == module.ARGTYPES
+    assert [_C_TYPES[p] for p in params] == argtypes
     assert source in _build.sources()
     assert _build.library_path(source).parent == _build.BUILD_DIR
 
@@ -65,3 +84,87 @@ def test_dense_kernel_matches_plain_on_card(case, cuda_device):
     assert dense_kernel.launches == before + 1
     want = ref.dense_match_rows_stream_ref(*args, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WINDOWED_CASES, ids=[c[0] for c in WINDOWED_CASES])
+def test_windowed_kernel_matches_plain_on_card(case, cuda_device):
+    dl, dr, mu, cand, kw = windowed_inputs(case)
+    args = [torch.as_tensor(a, device=cuda_device)
+            for a in (dl, dr, mu[0], mu[1], cand[0], cand[1])]
+    before = dense_kernel.windowed_launches
+    got = dense_kernel.dense_match_candidates(*args, **kw)
+    torch.cuda.synchronize()
+    assert dense_kernel.windowed_launches == before + 1
+    want = ref.dense_match_rows_windowed_ref(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SOBEL_CASES, ids=[c[0] for c in SOBEL_CASES])
+def test_sobel_kernel_matches_plain_on_card(case, cuda_device):
+    img = torch.as_tensor(sobel_image(case), device=cuda_device)
+    before = sobel_kernel.launches
+    got = sobel_kernel.sobel(img)
+    torch.cuda.synchronize()
+    assert sobel_kernel.launches == before + 1
+    want = ref.sobel_rows_ref(*ref.edge_row_views(img.to(torch.int32)))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MEDIAN_CASES, ids=[c[0] for c in MEDIAN_CASES])
+def test_median_kernel_matches_plain_on_card(case, cuda_device):
+    disp = torch.as_tensor(median_map(case), device=cuda_device)
+    before = median_kernel.launches
+    got = median_kernel.median3x3(disp)
+    torch.cuda.synchronize()
+    assert median_kernel.launches == before + 1
+    assert torch.equal(got, ref.median3x3_rows_ref(*ref.edge_row_views(disp)))
+
+
+@pytest.mark.gpu
+def test_batched_kernels_match_per_frame_launches_on_card(cuda_device):
+    """One launch over a wave of two different inputs equals the plain
+    version on the same stacked inputs (rows of all frames one after the
+    other) and one launch per frame, slot by slot, for the support, stream
+    and windowed kernels."""
+    a, b, kw = support_inputs(SUPPORT_CASES[0])
+    dl = torch.as_tensor(np.stack([a, b]), device=cuda_device)     # two different pairs
+    dr = torch.as_tensor(np.stack([b, a]), device=cuda_device)
+    out = support_kernel.support_match(dl, dr, **kw)
+    plain = ref.support_match_rows_streaming(dl.flatten(0, 1), dr.flatten(0, 1), **kw)
+    assert torch.equal(out, plain.reshape(out.shape))
+    for i in range(2):
+        assert torch.equal(out[i], support_kernel.support_match(dl[i].contiguous(),
+                                                                dr[i].contiguous(), **kw))
+
+    for make, cases, fn, plain_fn in (
+        (dense_inputs, DENSE_CASES, dense_kernel.dense_match_stream,
+         ref.dense_match_rows_stream_ref),
+        (windowed_inputs, WINDOWED_CASES, dense_kernel.dense_match_candidates,
+         ref.dense_match_rows_windowed_ref),
+    ):
+        pair = [make(cases[0]), make(cases[0][:-1] + (cases[0][-1] + 50,))]
+        kw = pair[0][4]
+        args = [torch.as_tensor(np.stack(x), device=cuda_device) for x in zip(
+            *[(c[0], c[1], c[2][0], c[2][1], c[3][0], c[3][1]) for c in pair])]
+        got = fn(*args, **kw)
+        plain = plain_fn(*(t.flatten(0, 1) for t in args), **kw)
+        assert all(torch.equal(g, w.reshape(g.shape)) for g, w in zip(got, plain))
+        for i in range(2):
+            one = fn(*(a[i].contiguous() for a in args), **kw)
+            assert all(torch.equal(g[i], o) for g, o in zip(got, one))
+
+
+@pytest.mark.gpu
+def test_xla_exp_log_on_card_match_plain(cuda_device):
+    """The kernels' float32 exp and log against the plain helpers over the
+    energy's input ranges: x <= 0 for exp, [3, 4] for log."""
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    x = -88.5 * torch.rand(1 << 20, generator=gen)
+    ex, _ = dense_kernel.xla_exp_log(x.to(cuda_device))
+    assert torch.equal(ex.cpu(), ref.xla_exp_f32(x))
+    y = 3.0 + torch.rand(1 << 20, generator=gen)
+    _, lg = dense_kernel.xla_exp_log(y.to(cuda_device))
+    assert torch.equal(lg.cpu(), ref.xla_log_f32(y))

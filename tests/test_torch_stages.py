@@ -33,6 +33,7 @@ from repro_torch.core import postprocess as port_post
 from repro_torch.core import prior as port_prior
 from repro_torch.core import support as port_support
 from repro_torch.core.params import params_from_dict
+from repro_torch.core.tiling import UNTILED
 
 SCENES = {
     # name: (height, width, d_max, lighting, seed, reference params)
@@ -76,6 +77,9 @@ def scene(request):
     s["gv_r"] = ref_gv.build_grid_vector(s["full_r"], p)
     s["gv_sparse"] = ref_gv.build_grid_vector(s["filtered"], p)
     s["bitmask"] = ref_dense.candidate_bitmask_rows(s["gv_l"], p, h)
+    s["cands_l"] = ref_dense.candidate_set(s["mu_l"], s["gv_l"], p)
+    s["cands_r"] = ref_dense.candidate_set(s["mu_r"], s["gv_r"], p)
+    s["cell_index"] = ref_gv.cell_index(h, w, p)
     s["disp_l"], s["disp_r"] = ref_dense.dense_both_views(
         jl, jr, s["mu_l"], s["mu_r"], s["gv_l"], s["gv_r"], p, backend="ref"
     )
@@ -136,6 +140,17 @@ def test_candidate_bitmask_rows(scene):
     _exact(scene["bitmask"], got, "candidate_bitmask_rows")
 
 
+def test_candidate_set(scene):
+    q = scene["q"]
+    _exact(scene["cands_l"], port_dense.candidate_set(_t(scene["mu_l"]), _t(scene["gv_l"]), q),
+           "candidate_set (left)")
+    _exact(scene["cands_r"], port_dense.candidate_set(_t(scene["mu_r"]), _t(scene["gv_r"]), q),
+           "candidate_set (right)")
+    cy, cx = port_gv.cell_index(scene["h"], scene["w"], q)
+    assert np.array_equal(cy.numpy(), np.asarray(scene["cell_index"][0]))
+    assert np.array_equal(cx.numpy(), np.asarray(scene["cell_index"][1]))
+
+
 def test_dense_both_views(scene):
     got_l, got_r = port_dense.dense_both_views(
         _t(scene["dl"]), _t(scene["dr"]), _t(scene["mu_l"]), _t(scene["mu_r"]),
@@ -143,6 +158,13 @@ def test_dense_both_views(scene):
     )
     _exact(scene["disp_l"], got_l, "dense left")
     _exact(scene["disp_r"], got_r, "dense right")
+    # The candidate route (per-pixel candidate tensors) gives the same maps.
+    got_l, got_r = port_dense.dense_both_views(
+        _t(scene["dl"]), _t(scene["dr"]), _t(scene["mu_l"]), _t(scene["mu_r"]),
+        _t(scene["gv_l"]), _t(scene["gv_r"]), scene["q"], tile=UNTILED,
+    )
+    _exact(scene["disp_l"], got_l, "dense left, candidate route")
+    _exact(scene["disp_r"], got_r, "dense right, candidate route")
 
 
 def test_postprocess(scene):

@@ -73,3 +73,69 @@ def dense_inputs(case):
     kw = dict(num_disp=nd, disp_min=dmin, plane_radius=2, cell_px=cell_px, beta=0.02,
               gamma=3.0, sigma=1.0, match_texture=tex)
     return dl, dr, mu.astype(np.float32), gm, kw
+
+
+# Candidate-window cases: (id, rows, width, num_disp, disp_min, candidates, mu kind,
+# desc kind, texture, seed).  Candidates repeat values, run off the image at
+# both edges, and (with "half" priors and constant descriptors) tie on energy.
+WINDOWED_CASES = [
+    ("random-w37-d16", 3, 37, 16, 0, 9, "spread", "random", 1, 10),
+    ("dmin4-w29-d12", 2, 29, 12, 4, 9, "spread", "random", 1, 11),
+    ("tie-half-prior-w19-d12", 2, 19, 12, 0, 7, "half", "zero", 0, 12),
+]
+
+
+def windowed_inputs(case):
+    _, h, w, nd, dmin, c, mu_kind, dkind, tex, seed = case
+    rng = np.random.default_rng(seed)
+    dl = _desc(rng, (h, w, 16), dkind)
+    dr = _desc(rng, (h, w, 16), dkind)
+    lo, hi = dmin, dmin + nd - 1
+    if mu_kind == "spread":
+        mu = rng.uniform(lo - 3, hi + 3, (2, h, w))
+    else:
+        mu = rng.integers(lo, hi, (2, h, w)) + 0.5
+    cand = rng.integers(lo, hi + 1, (2, h, w, c))
+    cand[..., 1] = cand[..., 0]                     # a repeated value in every window
+    kw = dict(num_disp=nd, disp_min=dmin, beta=0.02, gamma=3.0, sigma=1.0, match_texture=tex)
+    return dl, dr, mu.astype(np.float32), cand.astype(np.int32), kw
+
+
+# Sobel images: (id, height, width, dtype, seed).  Floats carry fractions, which
+# the int32 cast truncates; 1-row and 1-column images take every edge clamp.
+SOBEL_CASES = [
+    ("uint8-17x33", 17, 33, np.uint8, 0),
+    ("int32-16x24", 16, 24, np.int32, 1),
+    ("float32-5x7", 5, 7, np.float32, 2),
+    ("float32-1x9", 1, 9, np.float32, 3),
+    ("uint8-8x1", 8, 1, np.uint8, 4),
+]
+
+
+def sobel_image(case):
+    _, h, w, dtype, seed = case
+    rng = np.random.default_rng(seed)
+    if dtype == np.float32:
+        return rng.uniform(0, 256, (h, w)).astype(np.float32)
+    return rng.integers(0, 256, (h, w)).astype(dtype)
+
+
+# Median maps: (id, height, width, invalid share, seed).  Integral disparities
+# (many equal values), invalid pixels, and a fully invalid row.
+MEDIAN_CASES = [
+    ("9x9-p20", 9, 9, 0.2, 0),
+    ("16x31-p20", 16, 31, 0.2, 1),
+    ("7x50-p50", 7, 50, 0.5, 2),
+    ("2x3-p0", 2, 3, 0.0, 3),
+]
+
+
+def median_map(case):
+    _, h, w, share, seed = case
+    rng = np.random.default_rng(seed)
+    disp = rng.integers(0, 64, (h, w)).astype(np.float32)
+    disp[rng.random((h, w)) < 0.5] += 0.5
+    disp[rng.random((h, w)) < share] = -1.0
+    if h > 2:
+        disp[h // 2] = -1.0
+    return disp
