@@ -8,14 +8,16 @@ Phases (any failure exits nonzero):
  2. build: compile every ``src/repro_torch/kernels/csrc/*.cu`` in parallel;
  3. kernels: each CUDA kernel against its plain PyTorch version on the card,
     at the shapes the frame path and the wave give it (elas-kitti,
-    elas-tsukuba, and disp_min=4 dense cases), with 0 mismatches allowed:
+    elas-tsukuba, and disp_min=4 dense cases), with 0 mismatches allowed
+    (flash attention: within the tolerance stated at FLASH_TOL):
     the kernels' float32 exp/log (exhaustive over the log's input range),
     support search, streaming and candidate-window dense matching, Sobel,
     median; on a wave of four different pairs the support, streaming and
     candidate-window kernels against the plain version on the same stacked
     inputs and slot by slot against a per-frame launch, Sobel on both views
     of the wave and the median on the wave's maps; kernel, plain and bound
-    times;
+    times; flash attention at qwen2.5-32b's width against its plain version,
+    with ``F.scaled_dot_product_attention``'s time beside it as a yardstick;
  4. single frame: ``ielas_disparity`` for elas-kitti and elas-tsukuba, one
     warm-up frame and five timed frames each, with the support, stream,
     Sobel and median launch counts rising by one per frame; per-stage and
@@ -31,7 +33,20 @@ Phases (any failure exits nonzero):
     frames per second and one profiled wave;
  6. golden frame: the card's output against the port's CPU output (0
     mismatches) and the pinned sha256;
- 7. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
+ 7. attention: the port's ``flash_attention`` entry point at qwen2.5-32b's
+    attention width (B=1, H=40, S=4096, D=128), causal and not, float32 and
+    bfloat16, one launch a call, each output equal to phase 3's;
+ 8. service: ``StereoService(device="cuda")`` for elas-kitti and
+    elas-tsukuba, batch 4, two streams of 8 frames (seeds 0-15) after
+    ``warmup()``: every frame equal to the card's single-frame output of its
+    pair, each stream in submission order, no cache miss, the support,
+    Sobel, stream and median launches one per wave; waves, occupancy,
+    latency and frames/s against phase 5's bare wave, and the same burst
+    once more under the profiler; then a ``FaultPlan``
+    that fails one wave's dense stage once (its frames retried, still
+    equal) and poisons one frame (delivered with ``error`` while its
+    wave-mates recover); then ``repro_torch.launch.serve stereo`` once;
+ 9. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
 
 Every time is printed with the card's name and power limit.  Each profiled
 frame or wave also leaves its device-side rows, by time, in
@@ -85,6 +100,24 @@ GOLDEN_TOLERANCE = 0      # pixels of 57 x 83
 FRAME_TOLERANCE = 0       # share of a full frame's pixels
 WAVE = 4                  # frames per wave (seeds 0-3)
 
+# Flash attention at qwen2.5-32b's attention width (src/repro/configs/
+# qwen2_5_32b.py: 40 heads of 128; k and v with 40 heads too, as the
+# kernel has no grouped-query attention): (B, H, S, D).
+FLASH_SHAPE = (1, 40, 4096, 128)
+# The kernel sums in another order than the plain version (tiles of 64 keys
+# with online-softmax rescaling), so they agree within a tolerance, checked
+# elementwise as |kernel - plain| <= atol + rtol * |plain|.  float32: the
+# reference's own test tolerance (tests/test_flash_attention.py); sums of
+# at most 4096 terms below 1 in float32 differ by ~1e-6.  bfloat16: both
+# round float32 results that differ by ~1e-6 to bfloat16, so they differ
+# by at most one bfloat16 ulp, which is at most 2**-7 of the value.
+FLASH_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (1e-5, 2.0 ** -7)}
+# Dense peaks of the H100 SXM for the flash bound: the bf16 tensor-core
+# rate and the float32 rate of the CUDA cores (on-chip measurement guide).
+FLASH_PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+SERVICE_STREAMS = 2       # streams of the service phase
+SERVICE_FRAMES = 8        # frames per stream (seeds 0-15)
+
 
 def main() -> int:
     import torch
@@ -105,6 +138,7 @@ def main() -> int:
     from repro_torch.data.stereo import synthetic_stereo_pair
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import dense_match as dense_kernel
+    from repro_torch.kernels import flash_attention as flash_kernel
     from repro_torch.kernels import median as median_kernel
     from repro_torch.kernels import sobel as sobel_kernel
     from repro_torch.kernels import support_match as support_kernel
@@ -128,6 +162,9 @@ def main() -> int:
          "src/repro_torch/kernels/csrc/sobel.cu", "src/repro/kernels/sobel.py:32"),
         ("median3x3", median_kernel, "launches",
          "src/repro_torch/kernels/csrc/median.cu", "src/repro/kernels/median.py:18"),
+        ("flash_attention", flash_kernel, "launches",
+         "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:108"),
     ]
 
     def reset_counts():
@@ -217,9 +254,9 @@ def main() -> int:
 
     results = {}
 
-    def record(kernel, label, err, ms, plain, b_ms, b_by):
+    def record(kernel, label, err, ms, plain, b_ms, b_by, library=None):
         results[(kernel, label)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                        bound_ms=b_ms, bound_by=b_by)
+                                        bound_ms=b_ms, bound_by=b_by, library_ms=library)
 
     # ---- 3. kernels against their plain versions ----------------------------
     # The dense energy's exp and log: the card's sequence against the plain
@@ -517,6 +554,50 @@ def main() -> int:
     check_windowed("elas-kitti", inp, p4, time_it=False)
     del inp
 
+    import torch.nn.functional as F
+
+    def flash_inputs(dtype) -> list:
+        gen = torch.Generator().manual_seed(0)
+        return [torch.randn(FLASH_SHAPE, generator=gen).to(dev, dtype) for _ in range(3)]
+
+    def check_flash(dtype, causal) -> torch.Tensor:
+        """The kernel against its plain version at FLASH_SHAPE, with
+        scaled_dot_product_attention's time on the same inputs beside it."""
+        q, k, v = flash_inputs(dtype)
+        dname = str(dtype).removeprefix("torch.")
+        label = f"qwen2.5-32b {dname} {'causal' if causal else 'full'}"
+        got = flash_kernel.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        atol, rtol = FLASH_TOL[dname]
+        over = int((diff > atol + rtol * want.float().abs()).sum())
+        err = float(diff.max())
+        del want, diff
+        b, h, s, d = FLASH_SHAPE
+        ops = 4 * b * h * s * s * d // (2 if causal else 1)
+        nbytes = nbytes_of(q, k, v, got)
+        t_ops = ops / FLASH_PEAK_FLOPS[dname] * 1e3
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        ms, call = kernel_ms(lambda: flash_kernel.flash_attention(q, k, v, causal=causal),
+                             "flash_attention_kernel", 5)
+        plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal), 3)
+        library = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal), 10)
+        print(f"kernel flash_attention {label} {FLASH_SHAPE}: {over} of {got.numel()} outside "
+              f"atol {atol} + rtol {rtol} x |plain|, max_abs_err {err}, kernel {ms:.4f} ms "
+              f"(per call {call:.4f} ms), plain {plain:.3f} ms, scaled_dot_product_attention "
+              f"{library:.4f} ms, bound {b_ms:.5f} ms ({b_by}; {nbytes} B, {ops} flops at "
+              f"{FLASH_PEAK_FLOPS[dname] / 1e12:g} TFLOP/s) {card}")
+        if over:
+            raise AssertionError(f"flash kernel outside its tolerance of the plain version "
+                                 f"({label})")
+        record("flash_attention", label, err, ms, plain, b_ms, b_by, library)
+        return got
+
+    flash_out = {(dtype, causal): check_flash(dtype, causal)
+                 for dtype in (torch.float32, torch.bfloat16) for causal in (True, False)}
+
     def trace(label, fn):
         """``fn`` once more under torch.profiler: the device's busy share of
         its wall time and the kernels that take its device time."""
@@ -557,7 +638,7 @@ def main() -> int:
     # ---- 4. single frame -------------------------------------------------
     launches = {k[0]: 0 for k in kernels}
     per_frame = {"support_match": 1, "dense_match_stream": 1, "dense_match_windowed": 0,
-                 "sobel": 1, "median3x3": 1}
+                 "sobel": 1, "median3x3": 1, "flash_attention": 0}
     frames = 6
     single = {}
     for cfg, d_max in ((KITTI, 100.0), (TSUKUBA, 48.0)):
@@ -614,6 +695,7 @@ def main() -> int:
     routes = (("stream", None, "dense_match_stream"),
               ("take", TileSpec(gather="take"), "dense_match_windowed"))
     waves = 4
+    bare_wave_fps = {}
     for cfg, d_max in ((KITTI, 100.0), (TSUKUBA, 48.0)):
         p = cfg.params
         pairs = [pair(cfg, d_max, seed)[:2] for seed in range(WAVE)]
@@ -632,7 +714,7 @@ def main() -> int:
                 ev[0].record()
                 left = torch.as_tensor(left_np, device=dev)
                 right = torch.as_tensor(right_np, device=dev)
-                dl, dr, sup = pipeline.ielas_support_stage_batched(left, right, p, tile=tile)
+                dl, dr, sup = pipeline.ielas_support_stage_batched(left, right, p)
                 ev[1].record()
                 full = torch.stack([pipeline.ielas_interpolate_stage(s, p) for s in sup])
                 ev[2].record()
@@ -664,6 +746,8 @@ def main() -> int:
                 launches[k] += counts[k]
             check_output(f"{cfg.name} {route} wave", out, cfg)
             med = {key: median_of(v) for key, v in times.items()}
+            if tile is None:
+                bare_wave_fps[cfg.name] = WAVE / med["wall"]
             print(f"wave {cfg.name} {route} B={WAVE}: launches {counts} in {waves} waves; "
                   f"every slot equals its single-frame output; median of {waves - 1} waves: "
                   f"support {med['support']:.3f} ms, interpolation "
@@ -688,17 +772,135 @@ def main() -> int:
     if mism > GOLDEN_TOLERANCE:
         raise AssertionError(f"card output differs from the CPU output in {mism} pixels")
 
-    # ---- 7. summary --------------------------------------------------------
+    # ---- 7. attention ------------------------------------------------------
+    reset_counts()
+    for (dtype, causal), want in flash_out.items():
+        q, k, v = flash_inputs(dtype)
+        out = flash_kernel.flash_attention(q, k, v, causal=causal)   # the entry point
+        torch.cuda.synchronize()
+        if out.shape != want.shape or out.dtype != dtype or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"attention {dtype} causal={causal}: output "
+                                 f"{tuple(out.shape)} {out.dtype}, or not finite")
+        if not torch.equal(out, want):
+            raise AssertionError(f"attention {dtype} causal={causal}: differs from phase 3's")
+    counts = read_counts()
+    expect = {k: len(flash_out) if k == "flash_attention" else 0 for k in launches}
+    if counts != expect:
+        raise AssertionError(f"attention: launches {counts}, expected {expect}")
+    for k in launches:
+        launches[k] += counts[k]
+    print(f"attention {FLASH_SHAPE} float32 and bfloat16, causal and full: launches "
+          f"{counts}; every output equals phase 3's, which is held to the plain version {card}")
+    del flash_out, q, k, v, out, want
+    torch.cuda.empty_cache()
+
+    # ---- 8. service --------------------------------------------------------
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.serving import FaultPlan, FaultSpec, StereoService
+
+    wave_kernels = ("support_match", "sobel", "dense_match_stream", "median3x3")
+    for cfg, d_max in ((KITTI, 100.0), (TSUKUBA, 48.0)):
+        p = cfg.params
+        pairs = {(s, i): pair(cfg, d_max, SERVICE_FRAMES * s + i)[:2]
+                 for s in range(SERVICE_STREAMS) for i in range(SERVICE_FRAMES)}
+        want = {key: pipeline.ielas_disparity(il, ir, p).cpu().numpy()
+                for key, (il, ir) in pairs.items()}
+        n = len(pairs)
+        svc = StereoService(p, batch=WAVE, device="cuda", wave_linger=0.01)
+        svc.warmup([(cfg.height, cfg.width)])
+        reset_counts()
+
+        def burst():
+            """Both streams' frames submitted at once, interleaved; every
+            delivery collected."""
+            for i in range(SERVICE_FRAMES):
+                for s in range(SERVICE_STREAMS):
+                    svc.submit(i, *pairs[(s, i)], stream_id=s)
+            return svc.collect(n, timeout=600, strict=True)
+
+        with svc:
+            t0 = time.perf_counter()
+            done = burst()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            st = svc.stats()
+            trace(f"{cfg.name} service burst of {n}", burst)
+        for k, c in read_counts().items():
+            launches[k] += c - counts[k]      # the traced burst's launches
+        bad = [c.error for c in done if not c.ok]
+        mism = sum(int((c.disparity != want[(c.stream_id, c.frame_id)]).sum())
+                   for c in done if c.ok)
+        order = {s: [c.frame_id for c in done if c.stream_id == s]
+                 for s in range(SERVICE_STREAMS)}
+        expect = {k: st.waves if k in wave_kernels else 0 for k in launches}
+        print(f"service {cfg.name} batch {WAVE}, {SERVICE_STREAMS} streams x {SERVICE_FRAMES} "
+              f"frames: {len(done)} delivered, {len(bad)} failed, mismatches {mism} against "
+              f"the card's single-frame outputs; waves {st.waves}, occupancy "
+              f"{st.wave_occupancy:.3f}, cache misses {st.cache_misses}, launches {counts}; "
+              f"latency p50 {st.latency_p50_ms:.3f} ms, p95 {st.latency_p95_ms:.3f} ms; "
+              f"{n / wall:.2f} frames/s through the service ({n} frames in {wall * 1e3:.3f} "
+              f"ms, first submit to last delivery) against {bare_wave_fps[cfg.name]:.2f} "
+              f"frames/s of phase 5's bare wave {card}")
+        if bad or mism or len(done) != n:
+            raise AssertionError(f"service {cfg.name}: failed {bad[:2]}, {mism} mismatches")
+        if any(order[s] != list(range(SERVICE_FRAMES)) for s in order):
+            raise AssertionError(f"service {cfg.name}: streams out of order: {order}")
+        if st.cache_misses != 0:
+            raise AssertionError(f"service {cfg.name}: {st.cache_misses} misses after warm-up")
+        if counts != expect:
+            raise AssertionError(f"service {cfg.name}: launches {counts} for {st.waves} waves")
+        for k in launches:
+            launches[k] += counts[k]
+
+        # Containment on the card: wave 0's dense stage fails once (its frames
+        # are retried one by one); request 5 fails on every attempt.
+        poison = 5
+        plan = FaultPlan([FaultSpec(stage="dense", wave=0, times=1),
+                          FaultSpec(stage="dense", request_id=poison, times=None)])
+        svc = StereoService(p, batch=WAVE, device="cuda", wave_linger=0.01, fault_plan=plan)
+        svc.warmup([(cfg.height, cfg.width)])
+        reset_counts()
+        with svc:
+            rids = {svc.submit(i, *pairs[(0, i)]): i for i in range(SERVICE_FRAMES)}
+            done = svc.collect(SERVICE_FRAMES, timeout=600, strict=True)
+        for k, c in read_counts().items():
+            launches[k] += c
+        st = svc.stats()
+        by_rid = {c.request_id: c for c in done}
+        recovered = [c for rid, c in by_rid.items() if rid != poison]
+        mism = sum(int((c.disparity != want[(0, rids[rid])]).sum())
+                   for rid, c in by_rid.items() if rid != poison and c.ok)
+        print(f"service {cfg.name} faults: wave 0's dense stage failed once, request {poison} "
+              f"on every attempt; retried {st.retried}, failed frames {st.failed_frames} "
+              f"({by_rid[poison].error!r:.80}), {len(recovered)} others delivered with "
+              f"{mism} mismatches {card}")
+        if (plan.fired(0) != 1 or by_rid[poison].ok or st.failed_frames != 1
+                or not all(c.ok for c in recovered) or mism or st.retried < 2):
+            raise AssertionError(f"service {cfg.name}: fault containment failed")
+
+    reset_counts()
+    rc = serve_launch.main(["stereo", "--frames", "8", "--batch", str(WAVE), "--height", "120",
+                            "--width", "160", "--device", "cuda"])
+    counts = read_counts()
+    print(f"serve stereo (repro_torch.launch.serve, 8 frames 120x160): exit {rc}, "
+          f"launches {counts} {card}")
+    if rc != 0 or any(counts[k] == 0 for k in wave_kernels):
+        raise AssertionError("the serve launcher failed or launched no kernel")
+    for k in launches:
+        launches[k] += counts[k]
+
+    # ---- 9. summary --------------------------------------------------------
+    shown = {"flash_attention": "qwen2.5-32b bfloat16 causal"}
     entries = []
     for kname, _, _, source, replaces in kernels:
         if launches[kname] == 0:
             raise AssertionError(f"{kname} was never launched on the main path")
-        r = results[(kname, "elas-kitti")]
+        r = results[(kname, shown.get(kname, "elas-kitti"))]
         entries.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[kname], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

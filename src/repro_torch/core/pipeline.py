@@ -84,12 +84,10 @@ def _narrow_band(p: ElasParams, band_radius: Optional[int]) -> ElasParams:
 
 
 def ielas_support_stage(
-    img_left: torch.Tensor, img_right: torch.Tensor, p: ElasParams, tile: TileArg = None
+    img_left: torch.Tensor, img_right: torch.Tensor, p: ElasParams
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Descriptors (H, W, 16) int8 for both views + the filtered sparse
-    support grid (GH, GW) float32.  ``tile`` is validated; the support
-    search is the same for every tile."""
-    dense_route(tile)
+    support grid (GH, GW) float32."""
     dl, dr, support = descriptors_and_support(img_left, img_right, p)
     return dl, dr, filter_support(support, p)
 
@@ -98,12 +96,10 @@ def ielas_support_stage_batched(
     img_left: torch.Tensor,     # (B, H, W)
     img_right: torch.Tensor,
     p: ElasParams,
-    tile: TileArg = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Wave-shaped support stage: (dl, dr, filtered support) with a leading
     B, from one Sobel launch over both views of the wave and one support
     launch; filtering runs frame by frame."""
-    dense_route(tile)
     if img_left.dim() != 3:
         raise ValueError(f"images must be (B, H, W), got {tuple(img_left.shape)}")
     dl, dr = desc_mod.extract_views(img_left, img_right)
@@ -165,7 +161,8 @@ def ielas_disparity(
     dev = resolve_device(device)
     il = torch.as_tensor(img_left, device=dev)
     ir = torch.as_tensor(img_right, device=dev)
-    dl, dr, support = ielas_support_stage(il, ir, p, tile=tile)
+    dense_route(tile)     # a bad tile fails before any work
+    dl, dr, support = ielas_support_stage(il, ir, p)
     support = ielas_interpolate_stage(support, p)
     return ielas_dense_stage(dl, dr, support, p, tile=tile)
 

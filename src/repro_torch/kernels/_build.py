@@ -6,16 +6,18 @@ into ``build/repro_torch/<name>-<hash>.so`` at the repository root.  The
 hash covers the source, the shared headers (``csrc/*.cuh``) and the flags,
 so an edited source or header is rebuilt.
 Nothing is built when a module is imported: the first wrapper call on a
-CUDA tensor (or :func:`build`) does it.
+CUDA tensor (or :func:`build`) does it.  Building and loading hold one
+process-wide lock, so threads that reach a kernel at the same time (the
+serving engine's support and dense stages) build each library once.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -28,6 +30,11 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17", "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# Serialises build() and load() across threads; re-entrant because load()
+# builds while holding it.
+_LOCK = threading.RLock()
+_LOADED: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -65,6 +72,11 @@ def build(names: list[str] | None = None) -> dict[str, str]:
     Returns ``{name: compiler output}`` for the sources compiled by this
     call (``-Xptxas -v`` reports registers and shared memory per kernel).
     """
+    with _LOCK:
+        return _build_locked(names)
+
+
+def _build_locked(names: list[str] | None) -> dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     try:
@@ -94,11 +106,15 @@ def build(names: list[str] | None = None) -> dict[str, str]:
             tmp.unlink(missing_ok=True)
 
 
-@functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    build([name])
-    return ctypes.CDLL(str(library_path(name)))
+    """The loaded library for ``csrc/<name>.cu``, built first if needed
+    (once per process, whichever thread asks first)."""
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            build([name])
+            lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
+        return lib
 
 
 def bind(name: str, symbol: str, argtypes: list):

@@ -1,0 +1,84 @@
+"""Flash attention kernel, forward (counterpart of ``repro/kernels/flash_attention.py``).
+
+:func:`flash_attention` replaces ``flash_attention_pallas``: on CUDA
+tensors it launches the hand-written kernel in ``csrc/flash_attention.cu``
+(one launch per call: a block per 64-row query tile and batch-head, the
+key/value tiles walked inside the block); on CPU tensors it runs the plain
+version, :func:`repro_torch.kernels.ref.flash_attention_ref`.  The layout is
+the reference's: q (B, H, Sq, D), k and v (B, H, Skv, D), no grouped-query
+heads.  The kernel's tiles are fixed, so there are no block-size arguments.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+# Number of kernel launches since the last reset (CPU calls do not count).
+launches = 0
+
+#: Head widths the kernel is compiled for.
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# ielas_flash_attention(q, k, v, out, bh, sq, skv, d, dtype, causal, scale, stream)
+ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+
+
+@functools.cache
+def _kernel():
+    return _build.bind("flash_attention", "ielas_flash_attention", ARGTYPES)
+
+
+def flash_attention(
+    q: torch.Tensor,          # (B, H, Sq, D)
+    k: torch.Tensor,          # (B, H, Skv, D)
+    v: torch.Tensor,          # (B, H, Skv, D)
+    *,
+    causal: bool = True,
+) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D)) v, computed in float32, in q's dtype
+    (float32 or bfloat16).  With ``causal`` key position j is visible to
+    query position i iff j <= i, both counted from 0."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be (B, H, S, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, sq, d = q.shape
+    if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
+        raise ValueError(f"k and v must be (B, H, Skv, D) with q's B, H and D, got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)} for q {tuple(q.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must all be float32 or bfloat16, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    device = q.device
+    if k.device != device or v.device != device:
+        raise ValueError("q, k and v must be on one device")
+    if device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head width {d} not supported by the kernel (one of {HEAD_DIMS})")
+    if b * h > 65535:
+        raise ValueError(f"B * H = {b * h} exceeds the kernel's grid (65535)")
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            raise ValueError("q, k and v must be 16-byte aligned")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = _kernel()
+    with torch.cuda.device(device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b * h, sq, k.shape[2], d, _DTYPES[q.dtype], int(causal),
+                 1.0 / math.sqrt(d), torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention kernel launch failed: cudaError_t {err}")
+    global launches
+    launches += 1
+    return out

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels on the frame path, and the shared math
+"""Plain PyTorch versions of the kernels, and the shared math
 (counterpart of ``repro/kernels/ref.py``).
 
 These functions define what the CUDA kernels compute: the CPU path runs
@@ -557,3 +557,28 @@ def median3x3_rows_ref(top: torch.Tensor, mid: torch.Tensor, bot: torch.Tensor) 
     wins = [view[..., dx : dx + w] for view in (top, mid, bot) for dx in range(3)]
     wins = [torch.where(win == INVALID, centre, win) for win in wins]
     return torch.where(centre == INVALID, INVALID, median9(wins))
+
+
+# --------------------------------------------------------------------------
+# Flash attention
+# --------------------------------------------------------------------------
+def flash_attention_ref(
+    q: torch.Tensor,          # (B, H, Sq, D)
+    k: torch.Tensor,          # (B, H, Skv, D)
+    v: torch.Tensor,          # (B, H, Skv, D)
+    causal: bool = True,
+) -> torch.Tensor:
+    """Plain softmax attention in float32, cast to q's dtype -- what the
+    flash kernel must match.  With ``causal`` a key position j is visible
+    to query position i iff j <= i (both from 0); a masked score is -1e30,
+    not -inf."""
+    d = q.shape[-1]
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / (d ** 0.5)
+    if causal:
+        sq, skv = q.shape[2], k.shape[2]
+        mask = (torch.arange(skv, device=q.device)[None, :]
+                <= torch.arange(sq, device=q.device)[:, None])
+        scores = torch.where(mask, scores, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return out.to(q.dtype)

@@ -1,5 +1,6 @@
-"""The port stands alone: nothing under src/repro_torch/, in chip_smoke.py or
-in stage_profile.py imports jax or the reference package, and importing the port loads no jax."""
+"""The port stands alone: nothing under src/repro_torch/, in chip_smoke.py,
+stage_profile.py or service_profile.py imports jax or the reference package,
+and importing the port loads no jax."""
 import ast
 import os
 import subprocess
@@ -10,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "stage_profile.py",
+    ROOT / "chip_smoke.py", ROOT / "stage_profile.py", ROOT / "service_profile.py",
 ]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -34,7 +35,7 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_files_found():
     assert len(PORT_FILES) > 10
     for name in ("support_match", "dense_match_stream", "dense_match_windowed", "sobel",
-                 "median"):
+                 "median", "flash_attention"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / f"{name}.cu").exists()
 
 
@@ -49,8 +50,10 @@ def test_import_leaves_jax_unloaded():
         "import sys\n"
         "import repro_torch.core.pipeline, repro_torch.kernels.support_match, "
         "repro_torch.kernels.dense_match, repro_torch.kernels.sobel, "
-        "repro_torch.kernels.median, repro_torch.core.tiling, "
-        "repro_torch.configs.elas_stereo, repro_torch.data.stereo\n"
+        "repro_torch.kernels.median, repro_torch.kernels.flash_attention, "
+        "repro_torch.core.tiling, repro_torch.configs.elas_stereo, repro_torch.data.stereo, "
+        "repro_torch.runtime.fault_tolerance, repro_torch.serving, "
+        "repro_torch.serving.stereo_service, repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

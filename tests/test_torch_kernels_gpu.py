@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import dense_match as dense_kernel
+from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import median as median_kernel
 from repro_torch.kernels import sobel as sobel_kernel
 from repro_torch.kernels import support_match as support_kernel
@@ -41,6 +42,7 @@ _C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_flo
     ("dense_match_windowed", "ielas_dense_match_windowed", dense_kernel.WINDOWED_ARGTYPES),
     ("sobel", "ielas_sobel", sobel_kernel.ARGTYPES),
     ("median", "ielas_median3x3", median_kernel.ARGTYPES),
+    ("flash_attention", "ielas_flash_attention", flash_kernel.ARGTYPES),
 ])
 def test_binding_matches_launcher_signature(source, symbol, argtypes):
     text = (_build.CSRC / f"{source}.cu").read_text()

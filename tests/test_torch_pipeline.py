@@ -153,7 +153,7 @@ def test_golden_frame_on_every_route(golden, tile_id, tile):
     assert _digest(out) == GOLDEN_SHA256, f"single frame, tile={tile_id}"
     left = torch.stack([torch.as_tensor(il)] * 2)
     right = torch.stack([torch.as_tensor(ir)] * 2)
-    dl, dr, sup = pipeline.ielas_support_stage_batched(left, right, p, tile=tile)
+    dl, dr, sup = pipeline.ielas_support_stage_batched(left, right, p)
     sup = torch.stack([pipeline.ielas_interpolate_stage(s, p) for s in sup])
     wave = pipeline.ielas_dense_stage_batched(dl, dr, sup, p, tile=tile)
     assert wave.shape == (2, 57, 83)
