@@ -113,7 +113,7 @@ FLASH_SHAPE = (1, 40, 4096, 128)
 # by at most one bfloat16 ulp, which is at most 2**-7 of the value.
 FLASH_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (1e-5, 2.0 ** -7)}
 # Dense peaks of the H100 SXM for the flash bound: the bf16 tensor-core
-# rate and the float32 rate of the CUDA cores (on-chip measurement guide).
+# rate and the float32 rate of the CUDA cores (NVIDIA H100 datasheet).
 FLASH_PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 SERVICE_STREAMS = 2       # streams of the service phase
 SERVICE_FRAMES = 8        # frames per stream (seeds 0-15)
