@@ -6,6 +6,7 @@
 Phases (any failure exits nonzero):
  1. device: card name and count, ``nvidia-smi`` name and power limit, versions;
  2. build: compile every ``src/repro_torch/kernels/csrc/*.cu`` in parallel;
+    the flash library's SASS must hold HGMMA (bf16 on the tensor cores);
  3. kernels: each CUDA kernel against its plain PyTorch version on the card,
     at the shapes the frame path and the wave give it (elas-kitti,
     elas-tsukuba, and disp_min=4 dense cases), with 0 mismatches allowed
@@ -16,8 +17,10 @@ Phases (any failure exits nonzero):
     candidate-window kernels against the plain version on the same stacked
     inputs and slot by slot against a per-frame launch, Sobel on both views
     of the wave and the median on the wave's maps; kernel, plain and bound
-    times; flash attention at qwen2.5-32b's width against its plain version,
-    with ``F.scaled_dot_product_attention``'s time beside it as a yardstick;
+    times (every kernel time from a profiler row of that kernel's symbol);
+    flash attention at qwen2.5-32b's width against its plain version, with
+    ``F.scaled_dot_product_attention``'s time, and how many of its outputs
+    lie outside FLASH_TOL of the plain version, beside it as a yardstick;
  4. single frame: ``ielas_disparity`` for elas-kitti and elas-tsukuba, one
     warm-up frame and five timed frames each, with the support, stream,
     Sobel and median launch counts rising by one per frame; per-stage and
@@ -104,13 +107,15 @@ WAVE = 4                  # frames per wave (seeds 0-3)
 # qwen2_5_32b.py: 40 heads of 128; k and v with 40 heads too, as the
 # kernel has no grouped-query attention): (B, H, S, D).
 FLASH_SHAPE = (1, 40, 4096, 128)
-# The kernel sums in another order than the plain version (tiles of 64 keys
-# with online-softmax rescaling), so they agree within a tolerance, checked
-# elementwise as |kernel - plain| <= atol + rtol * |plain|.  float32: the
-# reference's own test tolerance (tests/test_flash_attention.py); sums of
-# at most 4096 terms below 1 in float32 differ by ~1e-6.  bfloat16: both
-# round float32 results that differ by ~1e-6 to bfloat16, so they differ
-# by at most one bfloat16 ulp, which is at most 2**-7 of the value.
+# The kernel sums in another order than the plain version (tiles of keys
+# with online-softmax rescaling; in bfloat16 P V is the sum of two
+# tensor-core products, of P's bf16 high and low halves), so they agree
+# within a tolerance, checked elementwise as |kernel - plain| <= atol +
+# rtol * |plain|.  float32: the reference's own test tolerance
+# (tests/test_flash_attention.py); sums of at most 4096 terms below 1 in
+# float32 differ by ~1e-6.  bfloat16: both round float32 results that
+# differ by ~1e-6 to bfloat16, so they differ by at most one bfloat16 ulp,
+# which is at most 2**-7 of the value.
 FLASH_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (1e-5, 2.0 ** -7)}
 # Dense peaks of the H100 SXM for the flash bound: the bf16 tensor-core
 # rate and the float32 rate of the CUDA cores (NVIDIA H100 datasheet).
@@ -195,6 +200,15 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {src}: {line.strip()}")
+    # The bfloat16 flash path must reach the tensor cores: Hopper's warpgroup
+    # MMA shows in the SASS as HGMMA.
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    print(f"flash_attention SASS: {hgmma} HGMMA instructions")
+    if not hgmma:
+        raise AssertionError("the flash library holds no HGMMA: bf16 misses the tensor cores")
 
     def cuda_ms(fn, reps: int) -> float:
         fn()
@@ -222,16 +236,27 @@ def main() -> int:
         """(the kernel's own device time per launch from the profiler, the
         wrapper's time per call by CUDA events over back-to-back calls).  The
         second includes the wrapper's host work, which is longer than a small
-        kernel; where the trace shows no device time the first is the second."""
+        kernel.  ``kernel`` is part of the kernel's symbol; a trace with no
+        device row of that name fails the run.  A trace that caught no device
+        activity at all (CUPTI now and then hands back none) is taken again,
+        up to three times."""
         per_call = cuda_ms(fn, reps)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        rows = [r for r in device_rows(prof) if kernel in r[2]]
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            traced = device_rows(prof)
+            if traced:
+                break
+            print(f"kernel_ms: the trace of {kernel} caught no device activity; taken again")
+        rows = [r for r in traced if kernel in r[2]]
         launched = sum(r[1] for r in rows)
-        own = sum(r[0] for r in rows) / launched / 1e3 if launched else per_call
-        return own, per_call
+        if not launched:
+            names = sorted({r[2][:80] for r in traced})
+            raise AssertionError(f"the profiler shows no device row named {kernel!r} "
+                                 f"(device rows: {names})")
+        return sum(r[0] for r in rows) / launched / 1e3, per_call
 
     def bound(nbytes: int, ops: int) -> tuple[float, str]:
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -573,21 +598,30 @@ def main() -> int:
         atol, rtol = FLASH_TOL[dname]
         over = int((diff > atol + rtol * want.float().abs()).sum())
         err = float(diff.max())
-        del want, diff
+        del diff
         b, h, s, d = FLASH_SHAPE
         ops = 4 * b * h * s * s * d // (2 if causal else 1)
         nbytes = nbytes_of(q, k, v, got)
         t_ops = ops / FLASH_PEAK_FLOPS[dname] * 1e3
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        symbol = "flash_attention_bf16_kernel" if dtype == torch.bfloat16 else \
+            "flash_attention_f32_kernel"
         ms, call = kernel_ms(lambda: flash_kernel.flash_attention(q, k, v, causal=causal),
-                             "flash_attention_kernel", 5)
+                             symbol, 5)
         plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal), 3)
         library = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal), 10)
+        # A yardstick, not a gate: how far SDPA's own output lies from the plain
+        # version, under the tolerance the kernel is held to.
+        sdpa = F.scaled_dot_product_attention(q, k, v, is_causal=causal).float()
+        want = want.float()
+        sdpa_over = int(((sdpa - want).abs() > atol + rtol * want.abs()).sum())
+        del want, sdpa
         print(f"kernel flash_attention {label} {FLASH_SHAPE}: {over} of {got.numel()} outside "
               f"atol {atol} + rtol {rtol} x |plain|, max_abs_err {err}, kernel {ms:.4f} ms "
               f"(per call {call:.4f} ms), plain {plain:.3f} ms, scaled_dot_product_attention "
-              f"{library:.4f} ms, bound {b_ms:.5f} ms ({b_by}; {nbytes} B, {ops} flops at "
+              f"{library:.4f} ms ({sdpa_over} of {got.numel()} outside the same tolerance), "
+              f"bound {b_ms:.5f} ms ({b_by}; {nbytes} B, {ops} flops at "
               f"{FLASH_PEAK_FLOPS[dname] / 1e12:g} TFLOP/s) {card}")
         if over:
             raise AssertionError(f"flash kernel outside its tolerance of the plain version "

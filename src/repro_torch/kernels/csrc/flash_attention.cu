@@ -8,36 +8,72 @@
 //
 // What it computes, per (batch * head, query row): softmax(q k^T / sqrt(D))
 // v over the key positions, in float32 whatever the input type (float32 or
-// bfloat16, read with the intrinsics), the result cast to the input type.
-// With `causal`, key position j is visible to query position i iff j <= i,
-// both counted from 0 (also when Sq != Skv).  The result is divided by
-// max(l, 1e-30), l the row's sum of exponentials, as the Pallas body does.
+// bfloat16), the result rounded to the input type.  With `causal`, key
+// position j is visible to query position i iff j <= i, both counted from 0
+// (also when Sq != Skv).  A masked score is -1e30, a key past the end -inf
+// (weight exactly 0); the result is divided by max(l, 1e-30), l the row's
+// sum of exponentials, as the Pallas body does.
 //
 // What bounds it on an H100: operations.  4 * Sq * Skv * D flops per head
 // (halved when causal) against 2 * (Sq + Skv) * D elements moved: at
-// S = 4096, D = 128 that is ~1000 flops a byte.  This kernel runs scalar
-// float32 FMAs, so its ceiling is the 67 TFLOP/s of the CUDA cores, not the
-// tensor cores' 989 (bf16); wgmma and TMA are a later redesign.
+// S = 4096, D = 128 that is ~1000 flops a byte.  The ceiling is the tensor
+// cores' 989 TFLOP/s for bfloat16 and the CUDA cores' 67 TFLOP/s for
+// float32 (TF32 would round the inputs to 10 bits and miss the tolerance).
 //
-// What the simple design does about it:
-//  * one block of 256 threads per (64-row query tile, batch * head); the
-//    Pallas grid's sequential kv axis becomes a loop inside the block, which
-//    carries the online-softmax state (m, l, acc) in registers -- blocks on
-//    Hopper run in no order and share no scratch;
-//  * the query tile and each 64-row key and value tile are staged in shared
-//    memory as float32 (rows padded by 4 floats so the float4 reads of
-//    sixteen different rows hit different banks);
-//  * each thread owns 4 query rows x 4 key columns of the score tile (two
-//    FMAs per shared-memory float read) and 4 rows x D/16 output columns;
-//    a row's max and sum are reduced over the 16 lanes that share it with
-//    shuffles; the probabilities go through shared memory to the P V step;
-//  * with `causal`, the loop stops at the last key tile that a row of the
-//    query tile can see: a fully hidden tile is never loaded (the Pallas
-//    kernel's pl.when skip), and the query tiles are scheduled heaviest
-//    first so the short ones fill the tail.
-// The first key tile always holds position 0, which every row sees, so a
-// row's running max is finite after it and no row divides by 0.
+// Both paths share the outer design: one block per (query tile, batch *
+// head), the Pallas grid's sequential kv axis a loop inside the block that
+// carries the online-softmax state (m, l, acc) in registers -- Hopper
+// blocks run in no order and share no scratch; with `causal` the loop ends
+// at the last key tile a row of the query tile can see (the Pallas kernel's
+// pl.when skip), and the grid runs the heaviest query tiles first (blockIdx.y
+// reversed, batch * head on x) so the short ones fill the tail.  The first
+// key tile holds position 0, which every row sees, so a row's running max is
+// finite after it and no row divides by 0.  No split over keys and no
+// atomics: a call is deterministic.
+//
+// bfloat16 (flash_attention_bf16_kernel), the tensor-core path:
+//  * 384 threads: a producer warpgroup, whose one thread keeps TMA loads in
+//    flight, and two consumer warpgroups of 64 query rows each (BQ = 128);
+//    setmaxnreg moves registers from the producer (24) to the consumers (240);
+//  * TMA copies the Q tile once and a 2-stage ring of 128-key K and V tiles
+//    through 3-D tensor maps (D, S, B * H), so a ragged tile reads zeros, not
+//    the next head; full/empty mbarrier pairs sit between producer and
+//    consumers.  Each box is 64 columns (one 128-byte row, 128-byte swizzle,
+//    the layout the wgmma descriptors name); D = 128 is two boxes, and
+//    D = 16 or 32 is one box whose columns past D are zero-filled;
+//  * S = Q K^T is wgmma m64n128k16 with both operands in shared memory,
+//    K-major as stored;
+//  * the online softmax runs on the accumulator fragment: each thread holds
+//    two rows, whose max is reduced over a quad with two shuffles (the sum
+//    only once, at the end); the mask runs only on tiles that cross the
+//    diagonal or the end of the keys;
+//  * O += P V is wgmma with A (P) in registers, repacked from the S fragment,
+//    and B (V, MN-major as stored) through a descriptor with the transpose
+//    bit.  bf16(P) alone would move ~10% of the outputs by more than one
+//    bf16 ulp, so P is split into hi = bf16(P) and lo = bf16(P - hi) and
+//    both products are summed in float32 (1.5x the tensor work of a plain
+//    flash kernel; the split leaves an error of ~2^-17 of P);
+//  * the output is divided and rounded in registers and stored with checked
+//    bf16 pair stores.
+//
+// float32 (flash_attention_f32_kernel), the CUDA-core path, explicit fmaf:
+//  * 256 threads per 128-row query tile, 64-key tiles, one block an SM:
+//    two warps on each SM sub-partition hide each other's shared-memory
+//    latency (a 64-row block of 128 threads, one warp a sub-partition, was
+//    slower on the card);
+//  * each thread owns 8 rows x 4 keys of the score tile and 8 rows x D/16
+//    columns of the output;
+//  * Q and each K tile are staged transposed (d-major) in shared memory, so
+//    a d step of the score product is two float4 reads of Q^T (two
+//    addresses a warp, broadcast) and one of K^T for 32 FMAs; the
+//    probabilities are stored transposed too, so a key step of P V is two
+//    float4 reads of P^T and two of V for 64 FMAs;
+//  * cp.async overlaps the copies with the arithmetic: the next K tile
+//    loads during this tile's softmax and P V, the next V tile during the
+//    next score product (the K^T copies are 4-byte, laid out so that a
+//    warp's 32 stores hit 32 banks).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -45,218 +81,725 @@
 
 namespace {
 
-constexpr int kBQ = 64;          // query rows of a block
-constexpr int kBK = 64;          // key rows of a tile
-constexpr int kThreads = 256;    // 16 x 16: ty -> 4 query rows, tx -> columns
-constexpr int kLdP = kBK + 4;    // padded row of the probability tile
 constexpr float kMasked = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 lo = __bfloat1622float2(p2[0]);
-  const float2 hi = __bfloat1622float2(p2[1]);
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+// ---------------------------------------------------------------------------
+namespace f32 {
+
+constexpr int kBQ = 128;          // query rows of a block
+constexpr int kBK = 64;           // key rows of a tile
+constexpr int kThreads = 256;     // 16 (tx: keys / output columns) x 16 (ty: query rows)
+constexpr int kUnroll = 32;       // steps unrolled, so that shared loads run ahead of the FMAs
+constexpr int kLdQ = kBQ + 8;     // a row of Q^T; the +8 spreads the transposing stores
+constexpr int kLdK = kBK + 8;     // a row of K^T, likewise
+constexpr int kLdP = kBQ + 4;     // a row of P^T
+static_assert(kBQ == 8 * (kThreads / 16) && kBK == 4 * 16, "a thread: 8 rows x 4 keys");
+
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(float) *
+         ((size_t)D * kLdQ + (size_t)D * kLdK + (size_t)kBK * D + (size_t)kBK * kLdP);
 }
 
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);   // round to nearest even, as torch's cast
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
 
-// Rows [row0, row0 + 64) of a (rows, D) matrix into a padded float32 tile;
-// rows past the end are zeros.
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, int rows,
-                                          int tid) {
-  constexpr int kVec = D / 4;
-  for (int idx = tid; idx < kBQ * kVec; idx += kThreads) {
-    const int r = idx / kVec, c = (idx % kVec) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < rows) val = load4(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<float4*>(dst + r * (D + 4) + c) = val;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Rows [row0, row0 + ROWS) of a (rows, D) matrix into dst[d * LD + row],
+// rows past the end as zeros.  A warp copies an 8-row x 4-column block a
+// step (lane = 8 * column + row), so with LD = 8 (mod 32) its 32 stores hit
+// 32 banks.  Warp w takes column blocks w, w + warps, ...: every address is
+// the thread's base plus a constant.
+template <int D, int ROWS, int LD>
+__device__ __forceinline__ void load_transposed(float* dst, const float* src, int row0, int rows,
+                                                int tid) {
+  constexpr int kWarps = kThreads / 32, kColBlocks = D / 4;
+  constexpr int kPerRowBlock = kColBlocks >= kWarps ? kColBlocks / kWarps : 1;
+  constexpr int kSteps = (ROWS / 8) * kColBlocks / kWarps;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int rs = lane & 7, ds = lane >> 3;
+  const int d0 = (warp % kColBlocks) * 4 + ds, r0 = (warp / kColBlocks) * 8 + rs;
+  const float* s0 = src + (size_t)(row0 + r0) * D + d0;
+  float* t0 = dst + d0 * LD + r0;
+  const bool whole = row0 + ROWS <= rows;
+#pragma unroll
+  for (int i = 0; i < kSteps; ++i) {
+    // step i: column block warp + kWarps * (i % kPerRowBlock) of row block ...
+    const int dr = kColBlocks >= kWarps ? 8 * (i / kPerRowBlock) : 8 * (kWarps / kColBlocks) * i;
+    const int dd = kColBlocks >= kWarps ? 4 * kWarps * (i % kPerRowBlock) : 0;
+    const bool valid = whole || row0 + r0 + dr < rows;
+    cp_async4(t0 + dd * LD + dr, valid ? s0 + (size_t)dr * D + dd : src, valid);
   }
 }
 
-__device__ __forceinline__ float row_reduce_max(float x) {
+// Rows [row0, row0 + kBK) of a (rows, D) matrix as stored, rows past the end
+// as zeros.
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int rows,
+                                          int tid) {
+  constexpr int kVec = D / 4, kSteps = kBK * kVec / kThreads;
+  const int r0 = tid / kVec, c = (tid % kVec) * 4;
+  constexpr int kRowStep = kThreads / kVec;
+  const bool whole = row0 + kBK <= rows;
+#pragma unroll
+  for (int i = 0; i < kSteps; ++i) {
+    const int r = r0 + i * kRowStep;
+    const bool valid = whole || row0 + r < rows;
+    cp_async16(dst + r * D + c, valid ? src + (size_t)(row0 + r) * D + c : src, valid);
+  }
+}
+
+__device__ __forceinline__ float reduce_max16(float x) {
   for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off, 16));
   return x;
 }
 
-__device__ __forceinline__ float row_reduce_sum(float x) {
+__device__ __forceinline__ float reduce_sum16(float x) {
   for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off, 16);
   return x;
 }
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)3 * kBQ * (D + 4) + (size_t)kBQ * kLdP);
+// N values of a row: float4s at c, c + GAP, ...
+template <int N, int GAP>
+__device__ __forceinline__ void load_n(float (&x)[N], const float* row, int c) {
+#pragma unroll
+  for (int g = 0; g < N / 4; ++g) {
+    const float4 a = *reinterpret_cast<const float4*>(row + c + g * GAP);
+    x[4 * g] = a.x; x[4 * g + 1] = a.y; x[4 * g + 2] = a.z; x[4 * g + 3] = a.w;
+  }
 }
 
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int sq, int skv, int causal, float scale) {
-  constexpr int kLd = D + 4;
-  constexpr int kCols = D / 16;
+// Output columns of thread tx: D / 16 of them, as float4 where D >= 64.
+template <int D>
+__device__ __forceinline__ int out_col(int tx, int c) {
+  if constexpr (D >= 128) return (c / 4) * 64 + tx * 4 + (c % 4);
+  else if constexpr (D == 64) return tx * 4 + c;
+  else return tx * (D / 16) + c;
+}
+
+template <int D>
+__device__ __forceinline__ void load_v(float (&x)[D / 16], const float* row, int tx) {
+  if constexpr (D >= 64) {
+    load_n<D / 16, 64>(x, row, tx * 4);
+  } else {
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) x[c] = row[out_col<D>(tx, c)];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ out, int sq, int skv, int causal, float scale_log2) {
+  constexpr int kC = D / 16;
+  constexpr int kHalf = kBQ / 2;
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);   // [kBQ][kLd]
-  float* ks = qs + kBQ * kLd;                    // [kBK][kLd]
-  float* vs = ks + kBK * kLd;                    // [kBK][kLd]
-  float* ps = vs + kBK * kLd;                    // [kBQ][kLdP]
+  float* qt = reinterpret_cast<float*>(smem4);   // [D][kLdQ]   Q^T
+  float* kt = qt + D * kLdQ;                     // [D][kLdK]   K^T
+  float* vs = kt + D * kLdK;                     // [kBK][D]    V
+  float* pt = vs + kBK * D;                      // [kBK][kLdP] P^T
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;    // heaviest tiles first
-  const size_t bh = blockIdx.y;
-  const T* qb = q + bh * sq * D;
-  const T* kb = k + bh * skv * D;
-  const T* vb = v + bh * skv * D;
+  const size_t bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;    // heaviest tiles first
+  const float* qb = q + bh * sq * D;
+  const float* kb = k + bh * skv * D;
+  const float* vb = v + bh * skv * D;
+  // This thread's rows of the tile: ty*4 + i and kBQ/2 + ty*4 + i (i < 4); its
+  // keys of a tile: tx*4 + j (j < 4).
+  auto row_of = [&](int i) { return (i / 4) * kHalf + ty * 4 + (i % 4); };
 
-  load_tile<D>(qs, qb, q0, sq, tid);
+  const int kv_end = causal ? min(skv, min(q0 + kBQ, sq)) : skv;
+  const int tiles = (kv_end + kBK - 1) / kBK;
 
-  float m[4], l[4], acc[4][kCols];
+  load_transposed<D, kBQ, kLdQ>(qt, qb, q0, sq, tid);
+  cp_async_commit();
+  load_transposed<D, kBK, kLdK>(kt, kb, 0, skv, tid);
+  cp_async_commit();
+  load_rows<D>(vs, vb, 0, skv, tid);
+  cp_async_commit();
+
+  float m[8], l[8], o[8][kC];     // m in the log2 domain
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 8; ++i) {
     m[i] = kMasked;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < kC; ++c) o[i][c] = 0.f;
   }
 
-  // Key positions past the tile's last query row are hidden from every row.
-  const int kv_end = causal ? min(skv, min(q0 + kBQ, sq)) : skv;
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-    __syncthreads();               // the previous tile's readers are done
-    load_tile<D>(ks, kb, k0, skv, tid);
-    load_tile<D>(vs, vb, k0, skv, tid);
+  for (int t = 0; t < tiles; ++t) {
+    const int k0 = t * kBK;
+    const bool more = t + 1 < tiles;
+    cp_async_wait<1>();              // Q and this K tile are in; this V tile may not be
     __syncthreads();
 
-    float s[4][4];
+    float s[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 a[4], b[4];
+#pragma unroll kUnroll
+    for (int d = 0; d < D; ++d) {
+      float a[8], b[4];
+      load_n<8, kHalf>(a, qt + d * kLdQ, ty * 4);
+      load_n<4, 4>(b, kt + d * kLdK, tx * 4);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(qs + (ty * 4 + i) * kLd + d);
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * kLd + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-        }
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+    }
+    __syncthreads();                 // every thread is done with this K tile
+    if (more) {
+      load_transposed<D, kBK, kLdK>(kt, kb, k0 + kBK, skv, tid);
+      cp_async_commit();
     }
 
+    // Tiles inside the visible triangle and before the end need no mask.
+    const bool edge = k0 + kBK > skv || (causal && k0 + kBK - 1 > q0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
+    for (int i = 0; i < 8; ++i) {
+      const int qpos = q0 + row_of(i);
       float mc = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (kpos >= skv) x = -INFINITY;                  // past the end: weight 0
-        else if (causal && kpos > qpos) x = kMasked;     // the reference's mask value
+        float x = s[i][j] * scale_log2;
+        if (edge) {
+          const int kpos = k0 + tx * 4 + j;
+          if (kpos >= skv) x = -INFINITY;                 // past the end: weight 0
+          else if (causal && kpos > qpos) x = kMasked;    // the reference's mask value
+        }
         s[i][j] = x;
         mc = fmaxf(mc, x);
       }
-      const float m_new = fmaxf(m[i], row_reduce_max(mc));
-      const float r = expf(m[i] - m_new);
+      const float m_new = fmaxf(m[i], reduce_max16(mc));
+      const float r = exp2f(m[i] - m_new);
       float lsum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps[(ty * 4 + i) * kLdP + tx + 16 * j] = p;
-        lsum += p;
+        s[i][j] = exp2f(s[i][j] - m_new);
+        lsum += s[i][j];
       }
-      l[i] = l[i] * r + row_reduce_sum(lsum);
+      l[i] = l[i] * r + lsum;        // this thread's share; summed over the row at the end
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= r;
+      for (int c = 0; c < kC; ++c) o[i][c] *= r;
     }
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float* dst = pt + (tx * 4 + j) * kLdP + ty * 4;
+      *reinterpret_cast<float4*>(dst) = make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+      *reinterpret_cast<float4*>(dst + kHalf) = make_float4(s[4][j], s[5][j], s[6][j], s[7][j]);
+    }
+    if (more) cp_async_wait<1>();    // this V tile is in; the next K tile may not be
+    else cp_async_wait<0>();
+    __syncthreads();                 // P^T and V visible to every thread
 
-#pragma unroll 2
-    for (int c = 0; c < kBK; c += 4) {
-      float4 p[4];
+#pragma unroll kUnroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      float p[8], vv[kC];
+      load_n<8, kHalf>(p, pt + kk * kLdP, ty * 4);
+      load_v<D>(vv, vs + kk * D, tx);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = *reinterpret_cast<const float4*>(ps + (ty * 4 + i) * kLdP + c);
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const float* vrow = vs + (c + cc) * kLd + tx;
-#pragma unroll
-        for (int col = 0; col < kCols; ++col) {
-          const float vv = vrow[16 * col];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float pi = cc == 0 ? p[i].x : cc == 1 ? p[i].y : cc == 2 ? p[i].z : p[i].w;
-            acc[i][col] = fmaf(pi, vv, acc[i][col]);
-          }
-        }
-      }
+        for (int c = 0; c < kC; ++c) o[i][c] = fmaf(p[i], vv[c], o[i][c]);
+    }
+    __syncthreads();                 // every thread is done with V and P^T
+    if (more) {
+      load_rows<D>(vs, vb, k0 + kBK, skv, tid);
+      cp_async_commit();
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const float denom = fmaxf(reduce_sum16(l[i]), 1e-30f);
+    const int row = q0 + row_of(i);
     if (row >= sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    T* o = out + (bh * sq + row) * D + tx;
+    float* o_row = out + (bh * sq + row) * D;
 #pragma unroll
-    for (int col = 0; col < kCols; ++col) store(o + 16 * col, acc[i][col] / denom);
+    for (int c = 0; c < kC; ++c) o_row[out_col<D>(tx, c)] = o[i][c] / denom;
   }
 }
 
-template <int D, typename T>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int bh, int sq, int skv,
            int causal, float scale, cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<D, T>;
+  auto kernel = flash_attention_f32_kernel<D>;
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((sq + kBQ - 1) / kBQ, bh);
+  const dim3 grid(bh, (sq + kBQ - 1) / kBQ);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), sq, skv, causal, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), sq, skv, causal, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+}  // namespace f32
+
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores (wgmma), TMA
+// ---------------------------------------------------------------------------
+namespace bf16 {
+
+constexpr int kBQ = 128;          // query rows of a block: two consumer warpgroups of 64
+constexpr int kBK = 128;          // key rows of a tile
+constexpr int kStages = 2;        // K/V tiles in flight (a third measured no faster)
+constexpr int kThreads = 384;     // producer warpgroup + two consumer warpgroups
+constexpr int kBoxCols = 64;      // bf16 columns of a TMA box: one 128-byte swizzled row
+constexpr int kRowBytes = 128;
+constexpr int kConsumerArrivals = 8;   // one per consumer warp releases a stage
+// At least this much shared memory a block, so that two blocks never share an
+// SM: their consumers' setmaxnreg.inc could then wait for each other's
+// registers.
+constexpr int kMinSmem = 120 * 1024;
+
+template <int D>
+struct Tiles {
+  static constexpr int kCols = D < kBoxCols ? kBoxCols : D;   // columns staged (zeros past D)
+  static constexpr int kBoxes = kCols / kBoxCols;             // boxes a row
+  static constexpr int kQBytes = kBoxes * kBQ * kRowBytes;
+  static constexpr int kKVBytes = kBoxes * kBK * kRowBytes;   // one K or one V tile
+  static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
+  static constexpr int kUsed = 1024 + kQBytes + 2 * kStages * kKVBytes + kBarBytes;
+  static constexpr int kSmem = kUsed > kMinSmem ? kUsed : kMinSmem;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// Waits for the phase of parity `parity` to complete.  A wait of ~2^35
+// cycles (~20 s) means an arrival was lost: trap, which fails the launch,
+// rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long start = 0;
+  for (bool first = true;; first = false) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (first) start = clock64();
+    else if (clock64() - start > (1ll << 35)) __trap();
+  }
+}
+
+// One box of a 3-D tensor map into shared memory, reported to `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor for a 128-byte-swizzled operand (the
+// layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B): the start address, the
+// leading byte offset (K-major: unused; MN-major: from one 64-column block to
+// the next), the stride byte offset (from one 8-row group to the next: 1024
+// bytes), all in 16-byte units, and the swizzle mode 1 (128 bytes).  Tiles
+// start on 1024 bytes, so the base offset is 0; a step of 16 bf16 along a
+// 128-byte row adds 32 bytes to the start, and the hardware swizzles the sum.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead_bytes) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead_bytes >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads of an accumulator above the wait for
+// the wgmma that writes it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// d (64 x 128, f32) = A (64 x 16) B^T, or d += A B^T when `accumulate`; A
+// and B K-major in shared memory (descriptors).
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 pairs in registers) B; B MN-major in
+// shared memory (descriptor; the last immediate is the transpose bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16 pairs in registers) B; B MN-major in
+// shared memory (descriptor; the last immediate is the transpose bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// The consumer warpgroup `c` (0 or 1): query rows q0 + 64c .. + 63.
+template <int D>
+__device__ __forceinline__ void consume(uint32_t q_s, uint32_t k_s, uint32_t v_s, uint32_t bars,
+                                        __nv_bfloat16* __restrict__ out, int bh, int q0,
+                                        int tiles, int sq, int skv, int causal,
+                                        float scale_log2, int c) {
+  using T = Tiles<D>;
+  constexpr int kO = T::kCols / 2;          // output accumulator: 64 x kCols over 128 threads
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int quad_row = lane / 4, quad_col = lane % 4;
+  // This thread's rows: row0 and row0 + 8.
+  const int row0 = q0 + 64 * c + 16 * warp + quad_row;
+  const uint32_t q_full = bars, full0 = bars + 8, empty0 = bars + 8 * (1 + kStages);
+
+  float o[kO];
+#pragma unroll
+  for (int i = 0; i < kO; ++i) o[i] = 0.f;
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};   // in the log2 domain
+
+  mbar_wait(q_full, 0);
+  const uint32_t q_wg = q_s + 64 * c * kRowBytes;
+
+  for (int t = 0; t < tiles; ++t) {
+    const int stage = t % kStages;
+    mbar_wait(full0 + 8 * stage, (t / kStages) & 1);
+    const uint32_t k_t = k_s + stage * T::kKVBytes, v_t = v_s + stage * T::kKVBytes;
+
+    // S = Q K^T over d in steps of 16 (a 128-byte row holds four).
+    float s[kBK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t col = (kk % 4) * 32;
+      wgmma_ss(s, smem_desc(q_wg + (kk / 4) * kBQ * kRowBytes + col, 16),
+               smem_desc(k_t + (kk / 4) * kBK * kRowBytes + col, 16), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // Online softmax on the fragment: s[4j + e] is row row0 + 8 * (e / 2),
+    // key k0 + 8j + 2 * quad_col + e % 2.
+    const int k0 = t * kBK;
+    const bool edge = k0 + kBK > skv || (causal && k0 + kBK - 1 > q0 + 64 * c);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * j + e] * scale_log2;
+        if (edge) {
+          const int kpos = k0 + 8 * j + 2 * quad_col + (e & 1);
+          if (kpos >= skv) x = -INFINITY;                              // weight 0
+          else if (causal && kpos > row0 + 8 * (e >> 1)) x = kMasked;  // the reference's mask
+        }
+        s[4 * j + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float alpha = exp2f(m[r] - mx[r]);
+      l[r] *= alpha;
+      m[r] = mx[r];
+#pragma unroll
+      for (int j = 0; j < kO / 4; ++j) {
+        o[4 * j + 2 * r] *= alpha;
+        o[4 * j + 2 * r + 1] *= alpha;
+      }
+    }
+
+    // P as the A operand of m64nNk16: register h of k-slice kk holds the
+    // pair s[8kk + 2h], s[8kk + 2h + 1] (row h % 2).  hi = bf16(P), lo =
+    // bf16(P - hi).
+    uint32_t p_hi[kBK / 16][4], p_lo[kBK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const float p0 = exp2f(s[8 * kk + 2 * h] - m[h & 1]);
+        const float p1 = exp2f(s[8 * kk + 2 * h + 1] - m[h & 1]);
+        l[h & 1] += p0 + p1;
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+        const float2 back = __bfloat1622float2(hi);
+        p_hi[kk][h] = bits(hi);
+        p_lo[kk][h] = bits(__floats2bfloat162_rn(p0 - back.x, p1 - back.y));
+      }
+
+    // O += P_hi V + P_lo V over the keys in steps of 16 (16 rows of 128 bytes).
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t desc_v = smem_desc(v_t + kk * 16 * kRowBytes, kBK * kRowBytes);
+      wgmma_rs(o, p_hi[kk], desc_v);
+      wgmma_rs(o, p_lo[kk], desc_v);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    if (lane == 0) mbar_arrive(empty0 + 8 * stage);   // this warp is done with the stage
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row0 + 8 * r;
+    if (row >= sq) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* o_row = out + ((size_t)bh * sq + row) * D;
+#pragma unroll
+    for (int j = 0; j < kO / 4; ++j) {
+      const int col = 8 * j + 2 * quad_col;
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(o_row + col) = __floats2bfloat162_rn(
+            o[4 * j + 2 * r] / denom, o[4 * j + 2 * r + 1] / denom);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_bf16_kernel(
+    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ out, int sq,
+    int skv, int causal, float scale_log2) {
+  using T = Tiles<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;   // 128-byte swizzle: 1024
+  const uint32_t q_s = base;
+  const uint32_t k_s = q_s + T::kQBytes;                          // + stage * kKVBytes
+  const uint32_t v_s = k_s + kStages * T::kKVBytes;
+  const uint32_t bars = v_s + kStages * T::kKVBytes;  // q_full, full[kStages], empty[kStages]
+  const uint32_t q_full = bars, full0 = bars + 8, empty0 = bars + 8 * (1 + kStages);
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;    // heaviest tiles first
+  const int kv_end = causal ? min(skv, min(q0 + kBQ, sq)) : skv;
+  const int tiles = (kv_end + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumerArrivals);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer: one thread issues every copy.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, T::kQBytes);
+      for (int b = 0; b < T::kBoxes; ++b)
+        tma_load(q_s + b * kBQ * kRowBytes, &map_q, q_full, b * kBoxCols, q0, bh);
+      for (int t = 0; t < tiles; ++t) {
+        const int stage = t % kStages;
+        // The consumers released this stage's previous tile (t - kStages).
+        if (t >= kStages) mbar_wait(empty0 + 8 * stage, ((t / kStages) + 1) & 1);
+        const uint32_t full = full0 + 8 * stage;
+        mbar_expect_tx(full, 2 * T::kKVBytes);
+        for (int b = 0; b < T::kBoxes; ++b) {
+          const uint32_t off = stage * T::kKVBytes + b * kBK * kRowBytes;
+          tma_load(k_s + off, &map_k, full, b * kBoxCols, t * kBK, bh);
+          tma_load(v_s + off, &map_v, full, b * kBoxCols, t * kBK, bh);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    consume<D>(q_s, k_s, v_s, bars, out, bh, q0, tiles, sq, skv, causal, scale_log2, wg - 1);
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A (bh, rows, d) bf16 tensor as a 3-D map (d, rows, bh) with 64 x box_rows
+// boxes, 128-byte swizzle, zeros outside the tensor.
+CUresult encode(CUtensorMap* map, const void* base, int bh, int rows, int d, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kBoxCols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int bh, int sq, int skv,
+           int causal, float scale, cudaStream_t stream) {
+  if (encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap map_q, map_k, map_v;
+  if (encode(&map_q, q, bh, sq, D, kBQ) != CUDA_SUCCESS ||
+      encode(&map_k, k, bh, skv, D, kBK) != CUDA_SUCCESS ||
+      encode(&map_v, v, bh, skv, D, kBK) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = flash_attention_bf16_kernel<D>;
+  const int smem = Tiles<D>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(bh, (sq + kBQ - 1) / kBQ);
+  kernel<<<grid, kThreads, smem, stream>>>(map_q, map_k, map_v,
+                                           static_cast<__nv_bfloat16*>(out), sq, skv, causal,
+                                           scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bf16
+
+template <bool kBf16>
 int dispatch(const void* q, const void* k, const void* v, void* out, int bh, int sq, int skv,
              int d, int causal, float scale, cudaStream_t stream) {
+#define IELAS_FLASH_CASE(D)                                                                  \
+  case D:                                                                                    \
+    return kBf16 ? bf16::launch<D>(q, k, v, out, bh, sq, skv, causal, scale, stream)         \
+                 : f32::launch<D>(q, k, v, out, bh, sq, skv, causal, scale, stream);
   switch (d) {
-    case 16: return launch<16, T>(q, k, v, out, bh, sq, skv, causal, scale, stream);
-    case 32: return launch<32, T>(q, k, v, out, bh, sq, skv, causal, scale, stream);
-    case 64: return launch<64, T>(q, k, v, out, bh, sq, skv, causal, scale, stream);
-    case 128: return launch<128, T>(q, k, v, out, bh, sq, skv, causal, scale, stream);
+    IELAS_FLASH_CASE(16)
+    IELAS_FLASH_CASE(32)
+    IELAS_FLASH_CASE(64)
+    IELAS_FLASH_CASE(128)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef IELAS_FLASH_CASE
 }
 
 }  // namespace
 
 // Launch on `stream`: q (bh, sq, d), k and v (bh, skv, d), out like q, all
-// contiguous, of one type: dtype 0 float32, 1 bfloat16.  d is 16, 32, 64 or
-// 128; bh at most 65535.  Returns the cudaError_t of the launch (0 on
-// success).
+// contiguous and 16-byte aligned, of one type: dtype 0 float32, 1 bfloat16.
+// d is 16, 32, 64 or 128; sq, skv >= 1; sq / 64 tiles at most 65535.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int ielas_flash_attention(const void* q, const void* k, const void* v, void* out,
                                      int bh, int sq, int skv, int d, int dtype, int causal,
                                      float scale, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return dispatch<float>(q, k, v, out, bh, sq, skv, d, causal, scale, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(q, k, v, out, bh, sq, skv, d, causal, scale, s);
+  if (bh < 1 || sq < 1 || skv < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return dispatch<false>(q, k, v, out, bh, sq, skv, d, causal, scale, s);
+  if (dtype == 1) return dispatch<true>(q, k, v, out, bh, sq, skv, d, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }

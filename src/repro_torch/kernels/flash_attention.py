@@ -2,8 +2,9 @@
 
 :func:`flash_attention` replaces ``flash_attention_pallas``: on CUDA
 tensors it launches the hand-written kernel in ``csrc/flash_attention.cu``
-(one launch per call: a block per 64-row query tile and batch-head, the
-key/value tiles walked inside the block); on CPU tensors it runs the plain
+(one launch per call: a block per query tile and batch-head, the key/value
+tiles walked inside the block; bfloat16 on the tensor cores with ``wgmma``
+fed by TMA, float32 on the CUDA cores); on CPU tensors it runs the plain
 version, :func:`repro_torch.kernels.ref.flash_attention_ref`.  The layout is
 the reference's: q (B, H, Sq, D), k and v (B, H, Skv, D), no grouped-query
 heads.  The kernel's tiles are fixed, so there are no block-size arguments.
@@ -24,6 +25,8 @@ launches = 0
 #: Head widths the kernel is compiled for.
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Query rows of a block in both kernels; the query tiles run on grid y.
+_QUERY_TILE = 128
 
 # ielas_flash_attention(q, k, v, out, bh, sq, skv, d, dtype, causal, scale, stream)
 ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
@@ -63,15 +66,18 @@ def flash_attention(
         raise ValueError(f"unsupported device {device}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head width {d} not supported by the kernel (one of {HEAD_DIMS})")
-    if b * h > 65535:
-        raise ValueError(f"B * H = {b * h} exceeds the kernel's grid (65535)")
+    if -(-sq // _QUERY_TILE) > 65535:
+        raise ValueError(f"Sq = {sq} exceeds the kernel's grid (65535 query tiles of "
+                         f"{_QUERY_TILE})")
     q, k, v = (t.contiguous() for t in (q, k, v))
     for t in (q, k, v):
-        if t.data_ptr() % 16:
+        if t.data_ptr() % 16:    # TMA reads bases (and row strides) on 16 bytes
             raise ValueError("q, k and v must be 16-byte aligned")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if k.shape[2] == 0:          # no key: every row sums to 0, as the plain version's
+        return out.zero_()
     fn = _kernel()
     with torch.cuda.device(device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

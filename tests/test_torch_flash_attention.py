@@ -2,10 +2,11 @@
 wrapper runs its plain version, which must match JAX ``flash_attention_ref``
 and ``flash_attention_pallas(interpret=True)`` on the same numpy inputs, at
 the shapes and tolerances of tests/test_flash_attention.py (float32
-``atol=2e-5, rtol=1e-5``; bfloat16 ``3e-2``).  The ``gpu`` case holds the
-CUDA kernel against its plain version on a card and skips here.  JAX is
-imported by a fixture, so the ``gpu`` case also runs where JAX is not
-installed:
+``atol=2e-5, rtol=1e-5``; bfloat16 ``3e-2``).  The ``gpu`` cases hold the
+CUDA kernel against its plain version on a card (every head width, both
+dtypes, Sq above and below Skv, ragged tiles, more blocks than SMs, peaked
+scores, two calls bitwise equal) and skip here.  JAX is imported by a
+fixture, so the ``gpu`` cases also run where JAX is not installed:
 
     python -m pytest -m gpu tests/test_torch_flash_attention.py
 """
@@ -109,24 +110,81 @@ def test_wrapper_validates_inputs():
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: compares the CUDA kernel with its plain version")
+    torch.backends.cuda.matmul.allow_tf32 = False    # the plain version in full float32
     return torch.device("cuda", 0)
 
 
-@pytest.mark.gpu
 # float32: the reference test's tolerance; bfloat16: one bfloat16 ulp (both
 # sides round float32 results that differ by ~1e-6), at most 2**-7 of the value.
-@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 2e-5, 1e-5),
-                                             (torch.bfloat16, 1e-5, 2.0 ** -7)])
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("shape", [(1, 4, 256, 256, 128), (2, 3, 200, 328, 64),
-                                   (1, 2, 130, 70, 16)])
-def test_kernel_matches_plain_on_card(shape, causal, dtype, atol, rtol, cuda_device):
+ON_CARD_TOL = [(torch.float32, 2e-5, 1e-5), (torch.bfloat16, 1e-5, 2.0 ** -7)]
+# (B, H, Sq, Skv, D).  The bfloat16 kernel's tiles are 128 query rows and
+# 128 keys, the float32 kernel's 64 and 128.
+ON_CARD_SHAPES = [
+    (1, 4, 256, 256, 128),
+    (2, 3, 200, 328, 64),
+    (1, 2, 130, 70, 16),
+    (1, 2, 256, 256, 16),        # every head width
+    (1, 2, 256, 256, 32),
+    (1, 2, 256, 256, 64),
+    (1, 2, 384, 200, 64),        # Sq > Skv
+    (1, 2, 200, 384, 128),       # Sq < Skv
+    (1, 3, 77, 141, 128),        # ragged: neither a multiple of a tile
+    (2, 1, 1, 1, 32),
+    (1, 1, 129, 257, 16),
+    (4, 40, 256, 256, 128),      # B * H = 160 blocks a query tile, over the 132 SMs
+]
+
+
+def _on_card(shape, dtype, device, q_scale=1.0):
     b, h, sq, skv, d = shape
-    q, k, v = (torch.from_numpy(x).to(cuda_device, dtype) for x in _qkv(7, b, h, sq, skv, d))
+    q, k, v = _qkv(7, b, h, sq, skv, d)
+    return [torch.from_numpy(x).to(device, dtype) for x in (q * q_scale, k, v)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol,rtol", ON_CARD_TOL)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", ON_CARD_SHAPES, ids=lambda c: "x".join(map(str, c)))
+def test_kernel_matches_plain_on_card(shape, causal, dtype, atol, rtol, cuda_device):
+    q, k, v = _on_card(shape, dtype, cuda_device)
     before = port_flash.launches
     got = port_flash.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert port_flash.launches == before + 1
     want = ref.flash_attention_ref(q, k, v, causal=causal)
-    assert got.dtype == dtype
+    assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol,rtol", ON_CARD_TOL)
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernel_peaked_scores_on_card(causal, dtype, atol, rtol, cuda_device):
+    """q scaled by 8: a few keys take most of each row's weight, so the
+    running max moves late and the small probabilities (bfloat16: P's low
+    half) must still add up."""
+    q, k, v = _on_card((1, 4, 512, 512, 128), dtype, cuda_device, q_scale=8.0)
+    got = port_flash.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_deterministic_on_card(dtype, cuda_device):
+    """No split over keys and no atomics: two calls give the same bits."""
+    q, k, v = _on_card((1, 8, 640, 640, 128), dtype, cuda_device)
+    first = port_flash.flash_attention(q, k, v, causal=True)
+    assert torch.equal(first, port_flash.flash_attention(q, k, v, causal=True))
+
+
+@pytest.mark.gpu
+def test_kernel_without_keys_on_card(cuda_device):
+    """Skv = 0: every row's sum is empty, so the output is zeros, as the
+    plain version's; nothing is launched."""
+    q, k, v = _on_card((1, 2, 5, 0, 32), torch.bfloat16, cuda_device)
+    before = port_flash.launches
+    got = port_flash.flash_attention(q, k, v, causal=False)
+    assert port_flash.launches == before
+    assert torch.equal(got, ref.flash_attention_ref(q, k, v, causal=False))
+
