@@ -16,7 +16,8 @@ Phases (any failure exits nonzero):
     median; on a wave of four different pairs the support, streaming and
     candidate-window kernels against the plain version on the same stacked
     inputs and slot by slot against a per-frame launch, Sobel on both views
-    of the wave and the median on the wave's maps; kernel, plain and bound
+    of the wave and the median on the wave's maps; both dense kernels on
+    every case of ``tests/torch_kernel_cases.py``; kernel, plain and bound
     times (every kernel time from a profiler row of that kernel's symbol);
     flash attention at qwen2.5-32b's width against its plain version, with
     ``F.scaled_dot_product_attention``'s time, and how many of its outputs
@@ -80,11 +81,16 @@ PEAK_OPS_PER_S = 67e12
 # log: mantissa/exponent split (4), compare and 2 selected ops, 2 multiplies,
 # 10 FMAs, a multiply, an add (22).  A dense candidate's energy: subtract,
 # square, negate, divide, add gamma, exp, log, negate, convert, FMA, and the
-# compare-and-keep (9 + exp + log).  A dense mask test: a bitmask load, two
-# band compares, a bounds compare (4); a candidate-window slot: a candidate
-# load, its column, two bounds compares (4).  A Sobel pixel (both maps): 12
-# adds and shifts per map, floor shift and two clamps per map (30).  A median
-# pixel: 19 min/max pairs and 9 compare-and-selects (56).
+# compare-and-keep (9 + exp + log).  The dense bounds count the work every
+# implementation must do: each distinct in-image candidate of a pixel and
+# view once (a SAD and an energy).  Printed beside them, as the scan's and
+# the slots' bounds: the same work plus a mask test for every (pixel, d,
+# view) of a scan -- a bitmask load, two band compares, a bounds compare
+# (4) -- or an energy for every in-image slot of a window and a test for
+# every slot -- a candidate load, its column, two bounds compares (4).  A
+# Sobel pixel (both maps): 12 adds and shifts per map, floor shift and two
+# clamps per map (30).  A median pixel: 19 min/max pairs and 9
+# compare-and-selects (56).
 OPS_SAD = 47
 OPS_INSERT4 = 12
 OPS_EXP = 20
@@ -417,12 +423,21 @@ def main() -> int:
             total += int((mask & inside[None]).sum())
         return total
 
-    def windowed_inside(inp) -> int:
-        """Candidate slots whose matching column is inside the image."""
+    def windowed_inside(inp) -> tuple[int, int]:
+        """(candidate slots whose matching column is inside the image, the
+        distinct values among them, counted per pixel and view)."""
         w = inp["mu_l"].shape[-1]
         u = torch.arange(w, device=dev)[:, None]
-        return (int(((u - inp["cand_l"]) >= 0).sum())
-                + int(((u + inp["cand_r"]) < w).sum()))
+        slots = distinct = 0
+        for cand, sign in ((inp["cand_l"], -1), (inp["cand_r"], 1)):
+            vals = cand.sort(dim=-1).values
+            col = u + sign * vals
+            inside = (col >= 0) & (col < w)
+            first = torch.ones_like(inside)
+            first[..., 1:] = vals[..., 1:] != vals[..., :-1]
+            slots += int(inside.sum())
+            distinct += int((inside & first).sum())
+        return slots, distinct
 
     def check_stream(label, inp, p, time_it=True):
         args, kw = stream_args(inp), stream_kw(p)
@@ -436,14 +451,16 @@ def main() -> int:
         if time_it:
             cands = stream_candidates(inp, p)
             nbytes = nbytes_of(*args) + 2 * 4 * h * w
-            ops = cands * (OPS_SAD + OPS_ENERGY) + 2 * h * w * p.num_disp * OPS_MASK
-            b_ms, b_by = bound(nbytes, ops)
+            b_ms, b_by = bound(nbytes, cands * (OPS_SAD + OPS_ENERGY))
+            old_ms, old_by = bound(nbytes, cands * (OPS_SAD + OPS_ENERGY)
+                                   + 2 * h * w * p.num_disp * OPS_MASK)
             ms, call = kernel_ms(lambda: dense_kernel.dense_match_stream(*args, **kw),
                                  "dense_match_stream_kernel", 20)
             plain = cuda_ms(lambda: ref.dense_match_rows_stream_ref(*args, **kw), 3)
             line += (f", kernel {ms:.4f} ms (per call {call:.4f} ms), plain {plain:.3f} ms, "
-                     f"bound {b_ms:.5f} ms "
-                     f"({b_by}; {nbytes} B, {cands} candidates of {2 * h * w * p.num_disp})")
+                     f"bound {b_ms:.5f} ms ({b_by}; {nbytes} B, {cands} candidates of "
+                     f"{2 * h * w * p.num_disp}; the scan's bound, a mask test per "
+                     f"(pixel, d, view), {old_ms:.5f} ms, {old_by})")
             record("dense_match_stream", label, err, ms, plain, b_ms, b_by)
         print(f"{line} {card}")
         if mism:
@@ -460,16 +477,18 @@ def main() -> int:
         line = (f"kernel dense_match_windowed {label} {(h, w)} C={c} D={p.num_disp} "
                 f"disp_min={p.disp_min}: mismatches {mism} of {2 * h * w}, max_abs_err {err}")
         if time_it:
-            inside = windowed_inside(inp)
+            inside, distinct = windowed_inside(inp)
             nbytes = nbytes_of(*args) + 2 * 4 * h * w
-            ops = inside * (OPS_SAD + OPS_ENERGY) + 2 * h * w * c * OPS_SLOT
-            b_ms, b_by = bound(nbytes, ops)
+            b_ms, b_by = bound(nbytes, distinct * (OPS_SAD + OPS_ENERGY))
+            old_ms, old_by = bound(nbytes, inside * (OPS_SAD + OPS_ENERGY)
+                                   + 2 * h * w * c * OPS_SLOT)
             ms, call = kernel_ms(lambda: dense_kernel.dense_match_candidates(*args, **kw),
                                  "dense_match_windowed_kernel", 20)
             plain = cuda_ms(lambda: ref.dense_match_rows_windowed_ref(*args, **kw), 3)
             line += (f", kernel {ms:.4f} ms (per call {call:.4f} ms), plain {plain:.3f} ms, "
-                     f"bound {b_ms:.5f} ms "
-                     f"({b_by}; {nbytes} B, {inside} in-image slots of {2 * h * w * c})")
+                     f"bound {b_ms:.5f} ms ({b_by}; {nbytes} B, {distinct} distinct in-image "
+                     f"values in {inside} in-image slots of {2 * h * w * c}; the slots' "
+                     f"bound, an energy per in-image slot, {old_ms:.5f} ms, {old_by})")
             record("dense_match_windowed", label, err, ms, plain, b_ms, b_by)
         print(f"{line} {card}")
         if mism:
@@ -578,6 +597,37 @@ def main() -> int:
     check_stream("elas-kitti", inp, p4, time_it=False)
     check_windowed("elas-kitti", inp, p4, time_it=False)
     del inp
+
+    # The dense kernels' edge cases (tests/torch_kernel_cases.py, numpy only):
+    # bitmask words that D ends inside, widths around the stream kernel's
+    # tile, windows with values outside the search range or of one value,
+    # two staging passes, ties between d = mu -/+ k.
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_kernel_cases as cases
+
+    for kernel, table, make, fn, plain in (
+        ("dense_match_stream", cases.DENSE_CASES, cases.dense_inputs,
+         dense_kernel.dense_match_stream, ref.dense_match_rows_stream_ref),
+        ("dense_match_windowed", cases.WINDOWED_CASES, cases.windowed_inputs,
+         dense_kernel.dense_match_candidates, ref.dense_match_rows_windowed_ref),
+    ):
+        failed, pixels = [], 0
+        for case in table:
+            dl_, dr_, mu_, extra, kw = make(case)
+            args = [torch.as_tensor(a, device=dev)
+                    for a in (dl_, dr_, mu_[0], mu_[1], extra[0], extra[1])]
+            # sigma = 1: the kernels multiply by 1 / (2 sigma^2), exactly;
+            # sigma = 1.5: they divide by 2 sigma^2.
+            for sigma in (kw["sigma"], 1.5):
+                got = fn(*args, **{**kw, "sigma": sigma})
+                mism, _ = mismatches(got, plain(*args, **{**kw, "sigma": sigma}))
+                pixels += 2 * mu_[0].size
+                if mism:
+                    failed.append(f"{case[0]} sigma {sigma}: {mism}")
+        print(f"kernel {kernel} on the {len(table)} cases of tests/torch_kernel_cases.py, "
+              f"sigma 1 and 1.5: mismatches {failed or 0} of {pixels} {card}")
+        if failed:
+            raise AssertionError(f"{kernel} disagrees with its plain version on {failed}")
 
     import torch.nn.functional as F
 

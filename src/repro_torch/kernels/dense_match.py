@@ -28,6 +28,14 @@ from repro_torch.kernels import _build, ref
 launches = 0
 windowed_launches = 0
 
+# The stream kernel stages a tile's descriptor columns and packed bitmask
+# words for up to this many disparities in shared memory, and tests the
+# prior band on integers, exact for the in-image d < W <= 2**24.
+# dense_match_stream raises beyond either limit on every device, so the CPU
+# and the card take the same inputs.
+STREAM_MAX_DISP = 1024
+STREAM_MAX_WIDTH = 1 << 24
+
 
 # ielas_dense_match_stream(desc_l, desc_r, mu_l, mu_r, gmask_l, gmask_r, out_l,
 #     out_r, batch, h, w, cw, num_disp, disp_min, plane_radius, cell_px, beta,
@@ -121,6 +129,9 @@ def dense_match_stream(
         raise TypeError("bitmasks must be bool")
     if plane_radius < 0 or cell_px < 1:
         raise ValueError(f"bad candidate geometry: plane_radius={plane_radius} cell_px={cell_px}")
+    if num_disp > STREAM_MAX_DISP or w > STREAM_MAX_WIDTH:
+        raise ValueError(f"the stream kernel takes num_disp <= {STREAM_MAX_DISP} and width <= "
+                         f"{STREAM_MAX_WIDTH}, got num_disp={num_disp}, width={w}")
     inputs = (desc_l, desc_r, mu_l, mu_r, gmask_l, gmask_r)
     device = _device_of(inputs)
     batch = lead[0] if lead else 1

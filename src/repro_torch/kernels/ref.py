@@ -463,11 +463,14 @@ def dense_match_rows_windowed_ref(
     onehot, slice), which are bitwise equal by construction: a loop over the
     C candidate slots, each gathering the matching descriptors at
     ``u - d`` (left view) or ``u + d`` (right view).  A slot whose matching
-    column is off the image has energy BIGF.  At the minimum energy the
-    smallest candidate VALUE wins (the reference's argmin-over-d tie-break;
-    ``disp_min + num_disp``, past the end of the value domain, is the "no
-    slot" sentinel), and ``valid = (emin < BIGF) & (texture >=
-    match_texture)``.  Returns (disp_l, disp_r), each (bh, W) float32.
+    column is off the image has energy BIGF.  The result is the reference's
+    ``min(where(e == emin, value, S))`` over the slots, ``S = disp_min +
+    num_disp`` (past the end of the value domain): the smallest value at the
+    minimum energy, capped at S when some slot lies above the minimum (a
+    cap only values at or above S, outside the domain ``candidate_set``
+    clips to, can meet).  A NaN energy makes ``emin`` NaN, as ``jnp.min``
+    does.  ``valid = (emin < BIGF) & (texture >= match_texture)``.  Returns
+    (disp_l, disp_r), each (bh, W) float32.
     """
     bh, w, _ = desc_l.shape
     dev = desc_l.device
@@ -477,9 +480,13 @@ def dense_match_rows_windowed_ref(
     rows = torch.arange(bh, device=dev)[:, None]
     two_s2 = torch.tensor(2.0 * sigma * sigma, dtype=torch.float32, device=dev)
 
+    sentinel = disp_min + num_disp
+
     def one_view(src, dst, mu, cands, sign):
-        emin = torch.full((bh, w), BIGF, dtype=torch.float32, device=dev)
-        best = torch.full((bh, w), disp_min + num_disp, dtype=torch.int32, device=dev)
+        # Running (least energy, smallest value at it, some slot above it).
+        emin = torch.full((bh, w), float("inf"), dtype=torch.float32, device=dev)
+        best = torch.full((bh, w), sentinel, dtype=torch.int32, device=dev)
+        above = torch.zeros((bh, w), dtype=torch.bool, device=dev)
         for c in range(cands.shape[-1]):
             d = cands[..., c]
             uc = u + sign * d
@@ -488,9 +495,11 @@ def dense_match_rows_windowed_ref(
             e = torch.full_like(emin, BIGF)
             e[inside] = dense_energy(sad[inside], d[inside].float(), mu[inside], beta=beta,
                                      gamma=gamma, two_s2=two_s2)
-            take = (e < emin) | ((e == emin) & (d < best))
-            best = torch.where(take, d, best)
+            lower = e < emin
+            above |= (lower & (emin < float("inf"))) | (e > emin)
+            best = torch.where(lower, d, torch.where(e == emin, torch.minimum(best, d), best))
             emin = torch.minimum(e, emin)
+        best = torch.where(above, best.clamp(max=sentinel), best)
         valid = (emin < BIGF) & (descriptor_texture(src) >= match_texture)
         return torch.where(valid, best.float(), INVALID)
 

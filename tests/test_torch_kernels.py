@@ -3,6 +3,7 @@ Pallas kernels (interpret mode), on the inputs of ``torch_kernel_cases``.
 Tolerance: exact (0 differing elements) everywhere.  The CUDA kernels are
 held against these plain versions in ``test_torch_kernels_gpu.py``.
 """
+import functools
 import zlib
 
 import jax
@@ -117,6 +118,30 @@ def test_wrappers_reject_bad_inputs():
         dense_kernel.dense_match_stream(*args, **{**kw, "disp_min": -1})
 
 
+def test_stream_wrapper_limits_hold_on_cpu():
+    """num_disp above STREAM_MAX_DISP and widths above STREAM_MAX_WIDTH
+    raise on the CPU as on the card; the limit itself is taken."""
+    dl, dr, mu, _, kw = dense_inputs(DENSE_CASES[0])
+    args = [torch.as_tensor(a) for a in (dl, dr, mu[0], mu[1])]
+    h = dl.shape[0]
+    for nd, ok in ((dense_kernel.STREAM_MAX_DISP, True), (dense_kernel.STREAM_MAX_DISP + 1, False)):
+        gm = torch.zeros((h, 2, nd), dtype=torch.bool)
+        call = functools.partial(dense_kernel.dense_match_stream, *args, gm, gm,
+                                 **{**kw, "num_disp": nd})
+        if ok:
+            out = call()
+            assert all(o.shape == (h, dl.shape[1]) for o in out)
+        else:
+            with pytest.raises(ValueError, match="num_disp <="):
+                call()
+    w = dense_kernel.STREAM_MAX_WIDTH + 1          # stride-0 views: no memory behind them
+    desc = torch.zeros((1, 1, 16), dtype=torch.int8).expand(1, w, 16)
+    mu_w = torch.zeros((1, 1)).expand(1, w)
+    gm = torch.zeros((1, 1, kw["num_disp"]), dtype=torch.bool)
+    with pytest.raises(ValueError, match="width"):
+        dense_kernel.dense_match_stream(desc, desc, mu_w, mu_w, gm, gm, **kw)
+
+
 # ---------------------------------------------------------------- XLA exp/log
 def _bits(x) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(x, np.float32)).view(np.int32)
@@ -181,8 +206,17 @@ def test_fma_f32_rounds_once():
 
 
 # ------------------------------------------------------------ candidate window
-@pytest.mark.parametrize("gather", WINDOWED_GATHERS)
-@pytest.mark.parametrize("case", WINDOWED_CASES, ids=[c[0] for c in WINDOWED_CASES])
+# The slice formulation sweeps only [disp_min, disp_min + D), the domain
+# candidate_set clips values to (its docstring); windows that hold values
+# outside it ("wide") are held against take and onehot, which take any int32.
+WINDOWED_PARAMS = [
+    pytest.param(case, gather, id=f"{case[0]}-{gather}")
+    for case in WINDOWED_CASES for gather in WINDOWED_GATHERS
+    if gather != "slice" or case[9] != "wide"
+]
+
+
+@pytest.mark.parametrize("case,gather", WINDOWED_PARAMS)
 def test_windowed_plain_matches_pallas(case, gather):
     dl, dr, mu, cand, kw = windowed_inputs(case)
     got = ref.dense_match_rows_windowed_ref(

@@ -170,3 +170,56 @@ def test_xla_exp_log_on_card_match_plain(cuda_device):
     y = 3.0 + torch.rand(1 << 20, generator=gen)
     _, lg = dense_kernel.xla_exp_log(y.to(cuda_device))
     assert torch.equal(lg.cpu(), ref.xla_log_f32(y))
+
+
+def _at_offset(a: np.ndarray, offset: int, device) -> torch.Tensor:
+    """``a`` on the card as a contiguous view starting ``offset`` bytes past
+    an allocation's (aligned) start."""
+    t = torch.as_tensor(a)
+    raw = torch.empty(t.numel() * t.element_size() + offset, dtype=torch.uint8, device=device)
+    view = raw[offset:].view(t.dtype).view(t.shape)
+    view.copy_(t.to(device))
+    return view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 4, 7, 8, 12, 15])
+def test_dense_kernels_take_unaligned_bitmasks_and_candidates_on_card(offset, cuda_device):
+    """Bitmask rows at any byte offset and candidate windows at any 4-byte
+    offset from a 16-byte boundary (a slot of a wave stack is such a view):
+    the kernels' 16-byte staging equals the plain version."""
+    dl, dr, mu, gm, kw = dense_inputs(DENSE_CASES[1])
+    args = [torch.as_tensor(a, device=cuda_device) for a in (dl, dr, mu[0], mu[1])]
+    masks = [_at_offset(g, offset, cuda_device) for g in gm]
+    assert all(m.data_ptr() % 16 == offset for m in masks)
+    got = dense_kernel.dense_match_stream(*args, *masks, **kw)
+    want = ref.dense_match_rows_stream_ref(*args, *masks, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if offset % 4 == 0:
+        dl, dr, mu, cand, kw = windowed_inputs(WINDOWED_CASES[3])
+        args = [torch.as_tensor(a, device=cuda_device) for a in (dl, dr, mu[0], mu[1])]
+        cands = [_at_offset(c, offset, cuda_device) for c in cand]
+        got = dense_kernel.dense_match_candidates(*args, *cands, **kw)
+        want = ref.dense_match_rows_windowed_ref(*args, *cands, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sigma", [1.0, 2.0 ** -60, 1.5, 0.75])
+def test_dense_kernels_match_plain_for_any_sigma_on_card(sigma, cuda_device):
+    """2 sigma^2 a power of two (1.0, 2^-60: the kernels multiply by its
+    reciprocal, which equals the division) and not one (1.5, 0.75: they
+    divide): each kernel equals its plain version."""
+    dl, dr, mu, gm, kw = dense_inputs(DENSE_CASES[0])
+    kw = {**kw, "sigma": sigma}
+    args = [torch.as_tensor(a, device=cuda_device) for a in (dl, dr, mu[0], mu[1], gm[0], gm[1])]
+    got = dense_kernel.dense_match_stream(*args, **kw)
+    want = ref.dense_match_rows_stream_ref(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    dl, dr, mu, cand, kw = windowed_inputs(WINDOWED_CASES[0])
+    kw = {**kw, "sigma": sigma}
+    args = [torch.as_tensor(a, device=cuda_device)
+            for a in (dl, dr, mu[0], mu[1], cand[0], cand[1])]
+    got = dense_kernel.dense_match_candidates(*args, **kw)
+    want = ref.dense_match_rows_windowed_ref(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

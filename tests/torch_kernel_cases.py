@@ -1,8 +1,16 @@
 """Kernel test inputs shared by the CPU tests (held against the JAX
 package) and the card tests (which run where JAX is not installed): tiny
 sizes, odd widths, crafted ties (periodic and constant descriptors,
-half-integer priors), columns whose whole sweep runs off the image, and
-``disp_min > 0``, all made with numpy from fixed seeds."""
+half-integer and integer priors), columns whose whole sweep runs off the
+image, and ``disp_min > 0``, all made with numpy from fixed seeds.
+
+The dense cases also reach the edges of the CUDA kernels' layouts: the
+stream kernel packs the bitmask into 32-bit words per cell (D = 40 and
+D = 100 end inside a word) and takes a row in tiles of 128 pixels (widths
+below a tile and one past it); the candidate-window kernel stages windows
+32 slots at a time (C = 40 takes two passes), keeps a seen-set over
+disp_min + [0, 256), and takes the flat pixels of a frame in blocks of 128
+(3 x 43 = 129 is one past a block)."""
 import numpy as np
 
 SUPPORT_KW = dict(step=5, offset=2, support_texture=10, support_ratio=0.85, lr_threshold=2)
@@ -53,7 +61,21 @@ DENSE_CASES = [
     ("tie-half-prior-w19-d12", 2, 19, 12, 0, 5, 0.0, "half", "zero", 0, 4),
     ("texture-gate-w17-d8", 1, 17, 8, 0, 5, 0.5, "spread", "ternary", 40, 5),
     ("all-off-image-w9-d20", 2, 9, 20, 6, 3, 0.4, "spread", "random", 1, 6),
+    ("words-d40-dmin4-w57", 2, 57, 40, 4, 6, 0.15, "spread", "random", 1, 7),
+    ("words-d100-dmin4-w61", 2, 61, 100, 4, 7, 0.1, "spread", "random", 1, 8),
+    ("tile-plus-one-w129-d40", 2, 129, 40, 0, 20, 0.15, "spread", "random", 1, 9),
+    ("tie-integer-prior-w43-d24", 2, 43, 24, 0, 5, 0.3, "integer", "zero", 0, 10),
 ]
+
+
+def _tie_prior(rng, kind, lo, hi, shape):
+    """Priors on which candidates tie on the prior energy: half-integer
+    (d = mu -/+ 1/2 tie), or integer (d = mu -/+ k tie, for every k)."""
+    if kind == "half":
+        return rng.integers(lo, hi, shape) + 0.5
+    if kind == "integer":
+        return rng.integers(lo, hi + 1, shape).astype(np.float64)
+    raise ValueError(kind)
 
 
 def dense_inputs(case):
@@ -66,8 +88,8 @@ def dense_inputs(case):
         mu = rng.uniform(lo - 3, hi + 3, (2, h, w))
     elif mu_kind == "far":
         mu = np.stack([np.full((h, w), lo - 40.0), np.full((h, w), hi + 40.0)])
-    else:   # half-integer priors: two candidates tie on the prior energy
-        mu = rng.integers(lo, hi, (2, h, w)) + 0.5
+    else:
+        mu = _tie_prior(rng, mu_kind, lo, hi, (2, h, w))
     cw = max(1, w // cell_px)
     gm = rng.uniform(size=(2, h, cw, nd)) < density
     kw = dict(num_disp=nd, disp_min=dmin, plane_radius=2, cell_px=cell_px, beta=0.02,
@@ -76,17 +98,27 @@ def dense_inputs(case):
 
 
 # Candidate-window cases: (id, rows, width, num_disp, disp_min, candidates, mu kind,
-# desc kind, texture, seed).  Candidates repeat values, run off the image at
-# both edges, and (with "half" priors and constant descriptors) tie on energy.
+# desc kind, texture, window kind, seed).  Candidates repeat values, run off the
+# image at both edges, and (with "half" or "integer" priors and constant
+# descriptors) tie on energy.  Window kinds: "domain" draws values from
+# [disp_min, disp_min + D), as candidate_set clips them; "wide" also below
+# disp_min (negative ones too) and at or above disp_min + D; "constant" gives
+# every slot of a window one value.
 WINDOWED_CASES = [
-    ("random-w37-d16", 3, 37, 16, 0, 9, "spread", "random", 1, 10),
-    ("dmin4-w29-d12", 2, 29, 12, 4, 9, "spread", "random", 1, 11),
-    ("tie-half-prior-w19-d12", 2, 19, 12, 0, 7, "half", "zero", 0, 12),
+    ("random-w37-d16", 3, 37, 16, 0, 9, "spread", "random", 1, "domain", 10),
+    ("dmin4-w29-d12", 2, 29, 12, 4, 9, "spread", "random", 1, "domain", 11),
+    ("tie-half-prior-w19-d12", 2, 19, 12, 0, 7, "half", "zero", 0, "domain", 12),
+    ("wide-values-d40-dmin4-w57", 2, 57, 40, 4, 25, "spread", "random", 1, "wide", 13),
+    ("constant-windows-d100-dmin4-w61", 2, 61, 100, 4, 25, "spread", "random", 1, "constant",
+     14),
+    ("block-plus-one-3x43-d24", 3, 43, 24, 0, 25, "spread", "random", 1, "domain", 15),
+    ("tie-integer-prior-w43-d24", 2, 43, 24, 0, 25, "integer", "zero", 0, "domain", 16),
+    ("two-passes-c40-w37-d64", 2, 37, 64, 0, 40, "spread", "random", 1, "domain", 17),
 ]
 
 
 def windowed_inputs(case):
-    _, h, w, nd, dmin, c, mu_kind, dkind, tex, seed = case
+    _, h, w, nd, dmin, c, mu_kind, dkind, tex, window, seed = case
     rng = np.random.default_rng(seed)
     dl = _desc(rng, (h, w, 16), dkind)
     dr = _desc(rng, (h, w, 16), dkind)
@@ -94,9 +126,15 @@ def windowed_inputs(case):
     if mu_kind == "spread":
         mu = rng.uniform(lo - 3, hi + 3, (2, h, w))
     else:
-        mu = rng.integers(lo, hi, (2, h, w)) + 0.5
-    cand = rng.integers(lo, hi + 1, (2, h, w, c))
-    cand[..., 1] = cand[..., 0]                     # a repeated value in every window
+        mu = _tie_prior(rng, mu_kind, lo, hi, (2, h, w))
+    if window == "wide":
+        cand = rng.integers(lo - 8, hi + 9, (2, h, w, c))
+    else:
+        cand = rng.integers(lo, hi + 1, (2, h, w, c))
+    if window == "constant":
+        cand[...] = cand[..., :1]
+    else:
+        cand[..., 1] = cand[..., 0]                 # a repeated value in every window
     kw = dict(num_disp=nd, disp_min=dmin, beta=0.02, gamma=3.0, sigma=1.0, match_texture=tex)
     return dl, dr, mu.astype(np.float32), cand.astype(np.int32), kw
 
