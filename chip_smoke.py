@@ -16,9 +16,13 @@ Phases (any failure exits nonzero):
     median; on a wave of four different pairs the support, streaming and
     candidate-window kernels against the plain version on the same stacked
     inputs and slot by slot against a per-frame launch, Sobel on both views
-    of the wave and the median on the wave's maps; both dense kernels on
-    every case of ``tests/torch_kernel_cases.py``; kernel, plain and bound
-    times (every kernel time from a profiler row of that kernel's symbol);
+    of the wave and the median on the wave's maps; the support kernel at
+    every split of a row into spans (1, 2, 4, 8 blocks a row) and on the
+    candidate rows' strided views; both dense kernels, the support kernel
+    (at every split) and the Sobel kernel (uint8, int32 and float32 stacks at
+    byte offsets 0-15) on every case of ``tests/torch_kernel_cases.py``;
+    kernel, plain and bound times (every kernel time from a profiler row of
+    that kernel's symbol);
     flash attention at qwen2.5-32b's width against its plain version, with
     ``F.scaled_dot_product_attention``'s time, and how many of its outputs
     lie outside FLASH_TOL of the plain version, beside it as a yardstick;
@@ -144,7 +148,7 @@ def main() -> int:
     from repro_torch.core.dense import candidate_bitmask_rows, candidate_set
     from repro_torch.core.descriptor import extract_views
     from repro_torch.core.postprocess import gap_interpolation, lr_consistency
-    from repro_torch.core.support import candidate_coords
+    from repro_torch.core.support import candidate_rows
     from repro_torch.core.tiling import TileSpec
     from repro_torch.data.stereo import synthetic_stereo_pair
     from repro_torch.kernels import _build, ref
@@ -245,9 +249,9 @@ def main() -> int:
         kernel.  ``kernel`` is part of the kernel's symbol; a trace with no
         device row of that name fails the run.  A trace that caught no device
         activity at all (CUPTI now and then hands back none) is taken again,
-        up to three times."""
+        up to five times."""
         per_call = cuda_ms(fn, reps)
-        for _ in range(3):
+        for _ in range(5):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
                     fn()
@@ -305,12 +309,15 @@ def main() -> int:
     if m_exp or m_log:
         raise AssertionError("the card's exp/log differ from the plain helpers")
 
-    def support_rows(cfg, d_max, seed=0):
-        p = cfg.params
+    def support_maps(cfg, d_max, seed=0):
+        """Both views' descriptor maps of one pair, ([B,] H, W, 16)."""
         il, ir, _ = pair(cfg, d_max, seed)
-        dl, dr = extract_views(torch.as_tensor(il, device=dev), torch.as_tensor(ir, device=dev))
-        vs, _ = candidate_coords(cfg.height, cfg.width, p.candidate_step, dev)
-        return dl[vs].contiguous(), dr[vs].contiguous()
+        return extract_views(torch.as_tensor(il, device=dev), torch.as_tensor(ir, device=dev))
+
+    def support_rows(maps, p):
+        """The candidate rows as the path passes them: strided views of the
+        descriptor maps."""
+        return [candidate_rows(m, p.candidate_step) for m in maps]
 
     def support_kw(p):
         return dict(num_disp=p.num_disp, step=p.candidate_step, offset=p.candidate_step // 2,
@@ -319,7 +326,7 @@ def main() -> int:
 
     def check_support(label, cfg, d_max):
         p = cfg.params
-        rows_l, rows_r = support_rows(cfg, d_max)
+        rows_l, rows_r = support_rows(support_maps(cfg, d_max), p)
         kw = support_kw(p)
         got = support_kernel.support_match(rows_l, rows_r, **kw)
         want = ref.support_match_rows_streaming(rows_l, rows_r, **kw)
@@ -353,10 +360,11 @@ def main() -> int:
         """A wave of four different pairs in one launch, against the plain
         version on the same stacked rows and slot by slot against a
         per-frame launch."""
-        kw = support_kw(cfg.params)
-        frames = [support_rows(cfg, d_max, seed) for seed in range(WAVE)]
-        rows_l = torch.stack([f[0] for f in frames])
-        rows_r = torch.stack([f[1] for f in frames])
+        p = cfg.params
+        kw = support_kw(p)
+        maps = [support_maps(cfg, d_max, seed) for seed in range(WAVE)]
+        frames = [support_rows(m, p) for m in maps]
+        rows_l, rows_r = support_rows([torch.stack(v) for v in zip(*maps)], p)
         got = support_kernel.support_match(rows_l, rows_r, **kw)
         want = ref.support_match_rows_streaming(flat(rows_l), flat(rows_r), **kw)
         per_frame = torch.stack([support_kernel.support_match(*f, **kw) for f in frames])
@@ -365,12 +373,13 @@ def main() -> int:
         slot, _ = mismatches(got, per_frame)
         ms, _ = kernel_ms(lambda: support_kernel.support_match(rows_l, rows_r, **kw),
                           "support_match_kernel", 20)
-        per = WAVE * kernel_ms(lambda: support_kernel.support_match(*frames[0], **kw),
+        # The four per-frame launches in one trace: WAVE x their mean.
+        per = WAVE * kernel_ms(lambda: [support_kernel.support_match(*f, **kw) for f in frames],
                                "support_match_kernel", 20)[0]
         print(f"kernel support_match {label} batched B={WAVE} {tuple(rows_l.shape)}: "
               f"mismatches {mism} of {got.numel()} against the plain version (max_abs_err "
-              f"{err}), {slot} against per-frame launches; one launch {ms:.4f} ms, {WAVE} x "
-              f"the first frame's launch {per:.4f} ms (device time) {card}")
+              f"{err}), {slot} against per-frame launches; one launch {ms:.4f} ms, {WAVE} "
+              f"per-frame launches {per:.4f} ms (device time) {card}")
         if mism or slot:
             raise AssertionError(f"batched support kernel disagrees ({label})")
 
@@ -514,7 +523,7 @@ def main() -> int:
         mism, err = mismatches(got, want)
         slot, _ = mismatches(got, per_frame)
         ms, _ = kernel_ms(lambda: fn(*args, **kw), symbol, 10)
-        per = sum(kernel_ms(lambda f=f: fn(*args_of(f), **kw), symbol, 10)[0] for f in frames)
+        per = WAVE * kernel_ms(lambda: [fn(*args_of(f), **kw) for f in frames], symbol, 10)[0]
         print(f"kernel {kernel} {label} batched B={WAVE} {tuple(args[2].shape)}: mismatches "
               f"{mism} of {2 * args[2].numel()} against the plain version (max_abs_err {err}), "
               f"{slot} against per-frame launches; one launch {ms:.4f} ms, {WAVE} per-frame "
@@ -544,8 +553,8 @@ def main() -> int:
                         10)
         print(f"kernel sobel {label} both views {tuple(imgs.shape)} {imgs.dtype}: mismatches "
               f"{mism} of {2 * n}, max_abs_err {err}, kernel {ms:.4f} ms (per call {call:.4f} ms, "
-              f"the int32 cast included), plain {plain:.3f} "
-              f"ms, bound {b_ms:.5f} ms ({b_by}; {nbytes} B) {card}")
+              f"the wrapper's host work included), plain {plain:.3f} "
+              f"ms, bound {b_ms:.5f} ms ({b_by}; {nbytes} B, {imgs.dtype} in, int8 out) {card}")
         if mism:
             raise AssertionError(f"sobel kernel disagrees with its plain version ({label})")
         record("sobel", label, err, ms, plain, b_ms, b_by)
@@ -628,6 +637,43 @@ def main() -> int:
               f"sigma 1 and 1.5: mismatches {failed or 0} of {pixels} {card}")
         if failed:
             raise AssertionError(f"{kernel} disagrees with its plain version on {failed}")
+
+    # The support kernel's cases (widths one past a span, D ending inside a
+    # d chunk, ties across chunks, KITTI and Tsukuba rows at 8 blocks a row,
+    # the narrow ones at 1, and rows too wide for one block at 2, 4 and 8),
+    # and the Sobel kernel's (uint8, int32, float32 with negative fractions;
+    # widths 1 to 200) with each stack's first byte at offsets 0 to 15 from
+    # a 16-byte boundary (as a wave's slices lie).
+    failed, cells = [], 0
+    support_cases = cases.SUPPORT_CASES + cases.SUPPORT_WIDE_CASES
+    for case in support_cases:
+        dl_, dr_, kw = cases.support_inputs(case)
+        tl, tr = torch.as_tensor(dl_, device=dev), torch.as_tensor(dr_, device=dev)
+        want = ref.support_match_rows_streaming(tl, tr, **kw)
+        mism, _ = mismatches(support_kernel.support_match(tl, tr, **kw), want)
+        cells += want.numel()
+        if mism:
+            failed.append(f"{case[0]}: {mism}")
+    print(f"kernel support_match on the {len(support_cases)} cases of "
+          f"tests/torch_kernel_cases.py: mismatches {failed or 0} of {cells} {card}")
+    if failed:
+        raise AssertionError(f"support kernel disagrees with its plain version on {failed}")
+    failed, pixels = [], 0
+    for case in cases.SOBEL_CASES:
+        img = np.stack([cases.sobel_image(case), cases.sobel_image(case)[::-1].copy()])
+        for offset in range(0, 16, img.itemsize):
+            raw = torch.empty(img.nbytes + offset, dtype=torch.uint8, device=dev)
+            view = raw[offset:].view(torch.from_numpy(img).dtype).view(img.shape)
+            view.copy_(torch.as_tensor(img))
+            mism, _ = mismatches(sobel_kernel.sobel(view),
+                                 ref.sobel_rows_ref(*ref.edge_row_views(view.to(torch.int32))))
+            pixels += 2 * img.size
+            if mism:
+                failed.append(f"{case[0]} offset {offset}: {mism}")
+    print(f"kernel sobel on the {len(cases.SOBEL_CASES)} cases of tests/torch_kernel_cases.py, "
+          f"two images a stack at byte offsets 0-15: mismatches {failed or 0} of {pixels} {card}")
+    if failed:
+        raise AssertionError(f"sobel kernel disagrees with its plain version on {failed}")
 
     import torch.nn.functional as F
 

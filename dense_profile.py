@@ -1,36 +1,57 @@
 #!/usr/bin/env python3
-"""What bounds the two dense kernels on one card: variants timed in turns.
+"""What bounds the stereo kernels on one card: variants timed in turns.
 
-    python3 dense_profile.py [--rounds N] [--reps N]
+    python3 dense_profile.py [--rounds N] [--reps N] [--sass-of PARENT_SUPPORT_CU]
 
 For ``elas-kitti`` and ``elas-tsukuba`` (seed 0) it prepares one frame's
-dense-stage inputs on the card, builds variants of
-``src/repro_torch/kernels/csrc/dense_match_stream.cu`` and
-``dense_match_windowed.cu`` (text substitutions into copies under
-``build/dense_profile/``; the sources themselves are not changed), and times
-each with CUDA events over ``--reps`` back-to-back launches, in ``--rounds``
-rounds of alternating order (minimum kept):
+inputs on the card, builds variants of
+``src/repro_torch/kernels/csrc/dense_match_stream.cu``,
+``dense_match_windowed.cu``, ``support_match.cu`` and ``sobel.cu`` (text
+substitutions into copies under ``build/dense_profile/``; the sources
+themselves are not changed), and times each with CUDA events over
+``--reps`` back-to-back launches, in ``--rounds`` rounds of alternating
+order (minimum kept): a launch's time inside a CUDA graph of ``--reps``
+launches (CUDA events around its replay, no host launch cost between
+launches), and back to back from the host (CUDA events, which the host's
+launch rate bounds below ~10 us):
 
 * ``as built``: the kernel as committed (checked against its plain version);
-* ``L2-resident``: every block (stream) or warp (windowed) reads the inputs of
-  one image row in the middle of the frame, so the inputs stay in L2 and the
-  time is the instructions' (the output is wrong, and not checked);
-* ``no energy``: the energy's exp and log replaced by one multiply-add, so
-  the difference to ``as built`` is what the energies cost;
-* ``loads only`` (stream: return after the block's loads and barrier) and
-  ``staging only`` (windowed: stage the windows, mark nothing).
+* ``L2-resident``: every block (stream, support) or warp (windowed) reads the
+  inputs of one row in the middle of the frame, so the inputs stay in L2 and
+  the time is the instructions' (the output is wrong, and not checked);
+* ``no energy`` (dense): the energy's exp and log replaced by one
+  multiply-add, so the difference to ``as built`` is what the energies cost;
+* ``SAD only`` (support): each register insert replaced by one add, so the
+  difference to ``as built`` is what the float min/max inserts cost;
+* ``1 / 2 / 4 / 8 blocks a row`` (support): the kernel with its count of
+  blocks a row fixed (as built it picks 8 on a KITTI frame, 1 on a Tsukuba
+  one; checked against its plain version);
+* ``1 / 4 rows a thread`` (Sobel): the strip each thread walks (2 as
+  built; checked against its plain version);
+* ``direct 3 x 3 sums`` (Sobel: each pixel's sums from its 9 neighbours, not
+  from the columns' separable sums; checked against its plain version);
+* ``no arithmetic`` (Sobel: the 3 x 3 sums replaced by one add, loads,
+  shuffles and stores kept);
+* ``loads only`` (stream: return after the block's loads and barrier;
+  support: after staging the block's descriptors; Sobel: the rows' loads
+  and one byte stored a row) and ``staging only`` (windowed: stage the
+  windows, mark nothing).
 
 It also prints the candidate counts per pixel and view (from the bitmasks and
 priors) and the share of a warp's lanes busy while it walks them (the mean
-count over the warp's busiest lane's).  Each line carries the card's name and
-power limit.  Imports nothing of JAX.
+count over the warp's busiest lane's), and, from ``cuobjdump -sass`` of the
+support library (and of ``--sass-of``, e.g. a parent commit's source), the
+instructions of each loop that computes SADs, per (column, d) pair.  Each
+line carries the card's name and power limit.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import subprocess
 import sys
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -65,13 +86,92 @@ VARIANTS = {
                           "  if (!active) return;\n"
                           "  (left ? out_l : out_r)[px] = (float)buf[lane];\n  return;\n")],
     },
+    "support_match": {
+        "as built": [],
+        "L2-resident": [("  const int row = blockIdx.y, frame = blockIdx.z;\n",
+                         "  const int row = gridDim.y / 2, frame = 0;\n")],
+        "SAD only": [("__device__ __forceinline__ void insert(Keys& r, int b, float key) {\n",
+                      "__device__ __forceinline__ void insert(Keys& r, int b, float key) {\n"
+                      "  r.k[0] += key;\n  return;\n")],
+        **{f"{k} blocks a row": [("  int k = 3LL * batch * gh >= 2LL * sm_count(device) || "
+                                  "w < 8 * 32 ? 1 : kMaxCluster;\n", f"  int k = {k};\n")]
+           for k in (1, 2, 4, 8)},
+        "loads only": [("  __syncthreads();\n  const uint4 zero",
+                        "  __syncthreads();\n"
+                        "  if (threadIdx.x == 0) p.out[((long long)frame * p.gh + row) * p.gw] = "
+                        "(float)sl[rank].x;\n  return;\n  const uint4 zero")],
+    },
+    "sobel": {
+        "as built": [],
+        **{f"{r} row{'s' * (r > 1)} a thread": [("constexpr int kRows = 2;",
+                                                    f"constexpr int kRows = {r};")]
+           for r in (1, 4)},
+        "direct 3 x 3 sums": [(
+            "      px[i] = pack(sub(sm[p], sm[p + 2]));\n"
+            "      py[i] = pack(add(add(df[p], df[p + 2]), add(df[p + 1], df[p + 1])));\n",
+            "      px[i] = pack(sub(add(add(v[0][p], v[2][p]), add(v[1][p], v[1][p])),\n"
+            "          add(add(v[0][p + 2], v[2][p + 2]), add(v[1][p + 2], v[1][p + 2]))));\n"
+            "      py[i] = pack(sub(add(add(v[0][p], v[0][p + 2]),\n"
+            "          add(v[0][p + 1], v[0][p + 1])),\n"
+            "          add(add(v[2][p], v[2][p + 2]), add(v[2][p + 1], v[2][p + 1]))));\n")],
+        "no arithmetic": [("    sobel_chunk(v, ox, oy);\n",
+                           "    ox[0] = (unsigned)(v[0][0] + v[1][9] + v[2][17]);\n")],
+        "loads only": [("    sobel_chunk(v, ox, oy);\n",
+                        "    ox[0] = (unsigned)(v[0][0] + v[1][9] + v[2][17]);\n"),
+                       ("      store_chunk(gx + f, ox, nx, nv, nvn, has_prev, has_next);\n"
+                        "      store_chunk(gy + f, oy, ny, nv, nvn, has_prev, has_next);\n",
+                        "      gx[f] = (int8_t)(ox[0] + nx[0]);\n")],
+    },
 }
+
+
+def sad_loops(library: Path) -> list[str]:
+    """The loops of support_match_kernel's SASS that compute SADs: for each,
+    its instructions by opcode and per (column, d) pair (a 16-byte SAD is 4
+    VABSDIFF4, so pairs = VABSDIFF4 / 4)."""
+    cuobjdump = Path(_nvcc_dir()) / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    body, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = "support_match_kernel" in line
+        elif inside:
+            body.append(line)
+    instrs = []                              # (address, instruction)
+    for line in body:
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.*?);", line)
+        if m:
+            instrs.append((int(m.group(1), 16), m.group(2).strip()))
+    index = {addr: i for i, (addr, _) in enumerate(instrs)}
+    out = []
+    for end, (addr, ins) in enumerate(instrs):
+        m = re.search(r"BRA(?:\.\w+)?\s+(?:\w+,\s*)?0x([0-9a-f]+)", ins)
+        if not m or int(m.group(1), 16) > addr or int(m.group(1), 16) not in index:
+            continue                         # not a backward branch
+        loop = [i for _, i in instrs[index[int(m.group(1), 16)] : end + 1]]
+        ops = Counter(re.sub(r"^@!?U?P\w+\s+", "", i).split()[0].split(".")[0] for i in loop)
+        pairs = ops.get("VABSDIFF4", 0) / 4
+        if pairs and ops.get("SHFL", 0) == 0:
+            top = ", ".join(f"{op} {n / pairs:.2f}" for op, n in ops.most_common(10))
+            out.append(f"loop {m.group(1)}-{addr:x} of {len(loop)} instructions, {pairs:g} "
+                       f"pairs: {len(loop) / pairs:.2f} a pair ({top})")
+    return out or ["no loop with VABSDIFF4 found"]
+
+
+def _nvcc_dir() -> str:
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    return str(Path(_build._nvcc()).parent)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=200)
+    ap.add_argument("--sass-of", default=None,
+                    help="another support_match.cu (e.g. a parent's) to count SASS of")
     args = ap.parse_args()
 
     import torch
@@ -79,13 +179,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("dense_profile: no CUDA device is available", file=sys.stderr)
         return 1
+
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.elas_stereo import KITTI, TSUKUBA
     from repro_torch.core import pipeline
     from repro_torch.core.dense import candidate_bitmask_rows, candidate_set
     from repro_torch.data.stereo import synthetic_stereo_pair
     from repro_torch.kernels import _build, ref
+    from repro_torch.core.support import candidate_rows
     from repro_torch.kernels import dense_match as dense_kernel
+    from repro_torch.kernels import sobel as sobel_kernel
+    from repro_torch.kernels import support_match as support_kernel
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -96,21 +200,39 @@ def main() -> int:
     out_dir = ROOT / "build" / "dense_profile"
     out_dir.mkdir(parents=True, exist_ok=True)
 
-    def build(source: str, label: str, subs) -> ctypes.CDLL:
-        text = (_build.CSRC / f"{source}.cu").read_text()
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"{source}.cu no longer holds {old!r}: update dense_profile.py")
-            text = text.replace(old, new, 1)
-        name = f"{source}-{label.replace(' ', '_')}"
+    def start_build(text: str, name: str) -> tuple:
+        """Start nvcc on `text` (a variant's source) into build/dense_profile/."""
         cu, so = out_dir / f"{name}.cu", out_dir / f"{name}.so"
         cu.write_text(text)
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
-                        str(so), str(cu)], check=True, capture_output=True, text=True)
-        return ctypes.CDLL(str(so))
+        proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                                 "-o", str(so), str(cu)], stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        return proc, so
 
-    libs = {(src, label): build(src, label, subs)
-            for src, table in VARIANTS.items() for label, subs in table.items()}
+    jobs = {}
+    for src, table in VARIANTS.items():
+        for label, subs in table.items():
+            text = (_build.CSRC / f"{src}.cu").read_text()
+            for old, new in subs:
+                if old not in text:
+                    raise RuntimeError(f"{src}.cu no longer holds {old!r}: update dense_profile.py")
+                text = text.replace(old, new, 1)
+            jobs[(src, label)] = start_build(text, f"{src}-{re.sub('[^A-Za-z0-9-]+', '_', label)}")
+    if args.sass_of:
+        jobs[("sass-of", "")] = start_build(Path(args.sass_of).read_text(), "support_match-sass_of")
+    libs = {}
+    for key, (proc, so) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {key}:\n{log}")
+        libs[key] = so
+    for key, so in (("as built", libs[("support_match", "as built")]),
+                    (args.sass_of, libs.get(("sass-of", "")))):
+        if so is not None:
+            for line in sad_loops(so):
+                print(f"support_match SASS ({key}): {line}")
+    libs.pop(("sass-of", ""), None)
+    libs = {key: ctypes.CDLL(str(so)) for key, so in libs.items()}
 
     def event_ms(fn) -> float:
         fn()
@@ -119,6 +241,27 @@ def main() -> int:
         start.record()
         for _ in range(args.reps):
             fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / args.reps
+
+    def graph_ms(fn) -> float:
+        """Time a launch of `fn` inside a CUDA graph of --reps launches
+        (CUDA events around its replay): no host launch cost between them."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(args.reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / args.reps
@@ -161,43 +304,78 @@ def main() -> int:
               f"{total / (2 * h * w):.3f} per pixel and view; lanes busy while warps walk "
               f"them {total / busiest:.3f} {card}")
 
-        stream = torch.cuda.current_stream().cuda_stream
         out_l = torch.empty((h, w), device=dev)
         out_r = torch.empty_like(out_l)
+        step = p.candidate_step
+        rows = (candidate_rows(dl, step), candidate_rows(dr, step))
+        gh, gw = rows[0].shape[0], w // step
+        sup_out = torch.empty((gh, gw), device=dev)
+        supkw = dict(num_disp=p.num_disp, step=step, offset=step // 2,
+                     support_texture=p.support_texture, support_ratio=p.support_ratio,
+                     lr_threshold=p.lr_threshold, disp_min=p.disp_min)
+        strides = [*support_kernel._strides(rows[0]), *support_kernel._strides(rows[1])]
+        views = torch.stack([torch.as_tensor(il, device=dev), torch.as_tensor(ir, device=dev)])
+        gx = torch.empty_like(views, dtype=torch.int8)
+        gy = torch.empty_like(gx)
+
+        def current() -> int:
+            return torch.cuda.current_stream().cuda_stream
+
+        def bind(lib, symbol, argtypes):
+            fn = getattr(lib, symbol)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            return fn
+
+        def launch(src, lib):
+            """(the launch, the plain version's mismatches after it)."""
+            if src == "dense_match_stream":
+                fn = bind(lib, "ielas_dense_match_stream", dense_kernel.ARGTYPES)
+                return (lambda: fn(*(t.data_ptr() for t in (*sargs, out_l, out_r)), 1, h, w, cw,
+                                   p.num_disp, p.disp_min, p.plane_radius, p.grid_size, p.beta,
+                                   p.gamma, 2.0 * p.sigma ** 2, p.match_texture, current()),
+                        lambda: sum(int((o != x).sum()) for o, x in zip(
+                            (out_l, out_r), ref.dense_match_rows_stream_ref(*sargs, **skw))))
+            if src == "dense_match_windowed":
+                fn = bind(lib, "ielas_dense_match_windowed", dense_kernel.WINDOWED_ARGTYPES)
+                return (lambda: fn(*(t.data_ptr() for t in (*wargs, out_l, out_r)), 1, h, w,
+                                   cand_l.shape[-1], p.num_disp, p.disp_min, p.beta, p.gamma,
+                                   2.0 * p.sigma ** 2, p.match_texture, current()),
+                        lambda: sum(int((o != x).sum()) for o, x in zip(
+                            (out_l, out_r), ref.dense_match_rows_windowed_ref(*wargs, **wkw))))
+            if src == "support_match":
+                fn = bind(lib, "ielas_support_match", support_kernel.ARGTYPES)
+                return (lambda: fn(rows[0].data_ptr(), rows[1].data_ptr(), sup_out.data_ptr(),
+                                   *strides, 1, gh, w, gw, p.num_disp, step, step // 2,
+                                   p.support_texture, p.support_ratio, p.lr_threshold,
+                                   p.disp_min, current()),
+                        lambda: int((sup_out != ref.support_match_rows_streaming(
+                            *rows, **supkw)).sum()))
+            fn = bind(lib, "ielas_sobel", sobel_kernel.ARGTYPES)
+            return (lambda: fn(views.data_ptr(), gx.data_ptr(), gy.data_ptr(), 2, h, w,
+                               sobel_kernel.KINDS[views.dtype], current()),
+                    lambda: sum(int((o != x).sum()) for o, x in zip(
+                        (gx, gy), ref.sobel_rows_ref(*ref.edge_row_views(views.to(torch.int32))))))
+
         runs = {}
         for (src, label), lib in libs.items():
-            if src == "dense_match_stream":
-                fn = lib.ielas_dense_match_stream
-                fn.argtypes, fn.restype = dense_kernel.ARGTYPES, ctypes.c_int
-                call = (lambda fn=fn: fn(*(t.data_ptr() for t in (*sargs, out_l, out_r)), 1, h,
-                                         w, cw, p.num_disp, p.disp_min, p.plane_radius,
-                                         p.grid_size, p.beta, p.gamma, 2.0 * p.sigma ** 2,
-                                         p.match_texture, stream))
-                plain = ref.dense_match_rows_stream_ref if label == "as built" else None
-                args_, kw = sargs, skw
-            else:
-                fn = lib.ielas_dense_match_windowed
-                fn.argtypes, fn.restype = dense_kernel.WINDOWED_ARGTYPES, ctypes.c_int
-                call = (lambda fn=fn: fn(*(t.data_ptr() for t in (*wargs, out_l, out_r)), 1, h,
-                                         w, cand_l.shape[-1], p.num_disp, p.disp_min, p.beta,
-                                         p.gamma, 2.0 * p.sigma ** 2, p.match_texture, stream))
-                plain = ref.dense_match_rows_windowed_ref if label == "as built" else None
-                args_, kw = wargs, wkw
+            call, check = launch(src, lib)
             if call() != 0:
                 raise RuntimeError(f"{src} {label}: launch failed")
-            if plain is not None:
-                want = plain(*args_, **kw)
-                mism = int((out_l != want[0]).sum()) + int((out_r != want[1]).sum())
-                if mism:
-                    raise AssertionError(f"{src} as built disagrees with its plain version")
+            checked = label == "as built" or label.endswith(("blocks a row", "a thread", "sums"))
+            if checked and check():
+                raise AssertionError(f"{src} {label} disagrees with its plain version")
             runs[(src, label)] = call
         times = {key: [] for key in runs}
+        device = {key: [] for key in runs}
         for rnd in range(args.rounds):
             for key in (list(runs) if rnd % 2 == 0 else list(reversed(list(runs)))):
                 times[key].append(event_ms(runs[key]))
+                device[key].append(graph_ms(runs[key]))
         for (src, label), ts in times.items():
-            print(f"{cfg.name} {src} {label}: {min(ts) * 1e3:.2f} us a launch (CUDA events, "
-                  f"min of {args.rounds} rounds of {args.reps}) {card}")
+            print(f"{cfg.name} {src} {label}: {min(device[(src, label)]) * 1e3:.2f} us a launch "
+                  f"in a CUDA graph, {min(ts) * 1e3:.2f} us a launch back to back (CUDA events; "
+                  f"the host's launch rate bounds it below ~10 us); min of {args.rounds} rounds "
+                  f"of {args.reps} {card}")
     return 0
 
 

@@ -43,6 +43,7 @@ from repro_torch.core.postprocess import postprocess
 from repro_torch.core.prior import plane_prior, right_view_support
 from repro_torch.core.support import descriptors_and_support, extract_support_grid_batched
 from repro_torch.core.tiling import TileArg, dense_route
+from repro_torch.kernels.ref import xla_sum_f32
 
 
 def resolve_device(device=None) -> torch.device:
@@ -170,10 +171,13 @@ def ielas_disparity(
 def disparity_error(
     disp: torch.Tensor, ground_truth: torch.Tensor, invalid: float = -1.0
 ) -> torch.Tensor:
-    """Paper Eq. (1): Error = (1/N) * sum |D - D*| / D*, over valid pixels."""
+    """Paper Eq. (1): Error = (1/N) * sum |D - D*| / D*, over valid pixels.
+
+    The float32 sum of the 2-D map is taken in XLA:CPU's order (on the
+    host), so the result equals the reference's bit for bit."""
     ok = (disp != invalid) & (ground_truth > 0)
     rel = torch.where(ok, (disp - ground_truth).abs() / ground_truth.clamp(min=1e-6), 0.0)
-    return rel.sum() / ok.sum().clamp(min=1)
+    return xla_sum_f32(rel) / ok.sum().clamp(min=1)
 
 
 def bad_pixel_rate(

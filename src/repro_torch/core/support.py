@@ -6,7 +6,8 @@ SAD matching of the 16-dim int8 descriptors at candidate pixels of pitch
 and left/right tests.  The result is a DENSE (GH, GW) float32 grid with
 INVALID = -1 sentinels.  The search itself is the support kernel
 (:func:`repro_torch.kernels.support_match.support_match`), one launch over
-all candidate rows of the frame.
+all candidate rows of the frame, which it reads through a strided view of
+the descriptors (no gather).
 """
 from __future__ import annotations
 
@@ -19,27 +20,15 @@ from repro_torch.kernels.support_match import support_match
 INVALID = -1.0
 
 
-def candidate_coords(
-    height: int, width: int, step: int, device=None
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pixel coordinates (v, u) of the support-candidate grid nodes,
-    ``(i*step + step//2, j*step + step//2)``; shapes (H//step,), (W//step,)."""
-    gh, gw = height // step, width // step
-    vs = torch.arange(gh, device=device) * step + step // 2
-    us = torch.arange(gw, device=device) * step + step // 2
-    return vs, us
+def candidate_rows(desc: torch.Tensor, step: int) -> torch.Tensor:
+    """The candidate rows ``i * step + step // 2`` of ([B,] H, W, 16)
+    descriptors: a strided view, no copy."""
+    gh = desc.shape[-3] // step
+    return desc[..., step // 2 : step // 2 + gh * step : step, :, :]
 
 
-def extract_support_grid(
-    desc_left: torch.Tensor,    # (H, W, 16) int8
-    desc_right: torch.Tensor,   # (H, W, 16) int8
-    p: ElasParams,
-) -> torch.Tensor:
-    """Dense support grid (GH, GW) float32, INVALID where no confident match."""
-    h, w = desc_left.shape[:2]
-    vs, _ = candidate_coords(h, w, p.candidate_step, desc_left.device)
-    return support_match(
-        desc_left[vs], desc_right[vs],
+def _support_kwargs(p: ElasParams) -> dict:
+    return dict(
         num_disp=p.num_disp,
         step=p.candidate_step,
         offset=p.candidate_step // 2,
@@ -48,6 +37,17 @@ def extract_support_grid(
         lr_threshold=p.lr_threshold,
         disp_min=p.disp_min,
     )
+
+
+def extract_support_grid(
+    desc_left: torch.Tensor,    # (H, W, 16) int8
+    desc_right: torch.Tensor,   # (H, W, 16) int8
+    p: ElasParams,
+) -> torch.Tensor:
+    """Dense support grid (GH, GW) float32, INVALID where no confident match."""
+    step = p.candidate_step
+    return support_match(candidate_rows(desc_left, step), candidate_rows(desc_right, step),
+                         **_support_kwargs(p))
 
 
 def extract_support_grid_batched(
@@ -59,18 +59,9 @@ def extract_support_grid_batched(
     slot equals :func:`extract_support_grid` on that frame."""
     if desc_left.dim() != 4:
         raise ValueError(f"descriptors must be (B, H, W, 16), got {tuple(desc_left.shape)}")
-    h, w = desc_left.shape[1:3]
-    vs, _ = candidate_coords(h, w, p.candidate_step, desc_left.device)
-    return support_match(
-        desc_left[:, vs], desc_right[:, vs],
-        num_disp=p.num_disp,
-        step=p.candidate_step,
-        offset=p.candidate_step // 2,
-        support_texture=p.support_texture,
-        support_ratio=p.support_ratio,
-        lr_threshold=p.lr_threshold,
-        disp_min=p.disp_min,
-    )
+    step = p.candidate_step
+    return support_match(candidate_rows(desc_left, step), candidate_rows(desc_right, step),
+                         **_support_kwargs(p))
 
 
 def descriptors_and_support(

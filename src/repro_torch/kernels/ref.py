@@ -67,6 +67,80 @@ def fma_f32(a, b, c) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# XLA:CPU's float32 sum of a 2-D array
+# --------------------------------------------------------------------------
+# jax.jit(jnp.sum) on a float32 (R, C) array compiles (JAX 0.9, x86-64 with
+# AVX-512) to this plan, read from its HLO and the LLVM IR it emits:
+#   * while a dimension exceeds 32, a reduce-window: each axis of more than
+#     32 is cut into windows of 32 (an axis of 32 or fewer is one window),
+#     zero-padded to a multiple of 32 with the lower half of the padding
+#     before; each window is summed from 0 in row-major order, one add
+#     after another (KITTI's 375 x 1242 takes two rounds: 12 x 39 block
+#     sums, then 1 x 2);
+#   * the last (R, C) <= (32, 32) array is summed by one loop, which LLVM
+#     vectorises across rows for some shapes (_xla_lanes): lane k sums rows
+#     k, k + V, ... row-major, the lanes are added by halving (lane i + lane
+#     i + V/2, ...), and the rows left over are added one element after
+#     another.  Otherwise it is summed row-major from 0 in one chain.
+# Summing in any other order changes the last bits (torch's .sum() is
+# pairwise).  tests/test_torch_metrics.py holds this against jax.jit(jnp.sum).
+_XLA_WINDOW = 32
+
+
+def _xla_lanes(r: int, c: int) -> int:
+    """The vector width LLVM gives the final (r, c) loop (1: not vectorised)."""
+    if not 2 <= c <= 8:
+        return 1
+    if r in (2, 4, 8):
+        return r
+    if 20 <= r <= 23:
+        return 4
+    if 28 <= r <= 31:
+        return 8 if c == 2 else 4
+    if 16 <= r <= 32:
+        return 8 if c <= 6 else 4
+    return 1
+
+
+def _chain_sums(rows: np.ndarray) -> np.ndarray:
+    """Each row of a float32 (n, k) array summed from 0, one add after another."""
+    start = np.zeros((rows.shape[0], 1), np.float32)
+    return np.add.accumulate(np.concatenate([start, rows], axis=1), axis=1,
+                             dtype=np.float32)[:, -1]
+
+
+def xla_sum_f32(x: torch.Tensor) -> torch.Tensor:
+    """The sum of a 2-D float32 tensor, bit for bit as ``jax.jit(jnp.sum)``
+    computes it on XLA:CPU: a float32 scalar on ``x``'s device.  Summed on
+    the host."""
+    if x.dim() != 2:
+        raise ValueError(f"xla_sum_f32 takes a 2-D tensor, got {tuple(x.shape)}")
+    a = x.detach().to("cpu", torch.float32).numpy()
+    if a.size == 0:
+        total = np.float32(0.0)
+    elif a.shape == (1, 1):
+        total = a[0, 0]                           # XLA copies the one element
+    else:
+        while a.shape[0] > _XLA_WINDOW or a.shape[1] > _XLA_WINDOW:
+            (r, c), win = a.shape, (min(a.shape[0], _XLA_WINDOW), min(a.shape[1], _XLA_WINDOW))
+            nr, nc = -(-r // win[0]), -(-c // win[1])
+            pad = np.zeros((nr * win[0], nc * win[1]), np.float32)
+            lo_r, lo_c = (nr * win[0] - r) // 2, (nc * win[1] - c) // 2
+            pad[lo_r : lo_r + r, lo_c : lo_c + c] = a
+            blocks = pad.reshape(nr, win[0], nc, win[1]).transpose(0, 2, 1, 3)
+            a = _chain_sums(blocks.reshape(nr * nc, -1)).reshape(nr, nc)
+        r, c = a.shape
+        v = _xla_lanes(r, c)
+        full = r // v * v
+        lanes = _chain_sums(np.stack([a[k:full:v].reshape(-1) for k in range(v)]))
+        while lanes.size > 1:
+            lanes = (lanes[: lanes.size // 2] + lanes[lanes.size // 2 :]).astype(np.float32)
+        # The rows left over, one add after another onto the lanes' sum.
+        total = _chain_sums(np.concatenate([lanes, a[full:].reshape(-1)])[None, :])[0]
+    return torch.tensor(total, dtype=torch.float32, device=x.device)
+
+
+# --------------------------------------------------------------------------
 # XLA:CPU's float32 exp and log
 # --------------------------------------------------------------------------
 # XLA:CPU evaluates float32 exp/log with the Cephes polynomials as Eigen
@@ -207,6 +281,61 @@ def _finalize4(vals: list, idxs: list) -> tuple[torch.Tensor, torch.Tensor, torc
     min2 = torch.full_like(min1, BIG)
     for k in (1, 2, 3):
         min2 = torch.minimum(min2, torch.where((idxs[k] - best).abs() > 1, vals[k], BIG))
+    return best, min1, min2
+
+
+# --------------------------------------------------------------------------
+# the support kernel's registers: packed keys, two per class of d mod 4
+# --------------------------------------------------------------------------
+# csrc/support_match.cu keeps a column's registers as keys cost << 10 | d
+# (cost <= 16 * 255 < 2^12, d < 2^10), which order as (cost, d), and keeps
+# the two least keys of each class of d mod 4 instead of the four least.
+# Both are order-free: lists of disjoint d ranges merge exactly, whatever
+# order the keys come in.  The least key gives _finalize4's best and min1;
+# its min2 (the least cost of a d outside |d - best| <= 1) is, in each
+# class, the least key or, when that one's d lies inside (at most one d of
+# a class can), the second.  These helpers are the kernel's insert, merge
+# and finalisation in plain PyTorch; tests/test_torch_support_facts.py holds
+# them against _insert4 and _finalize4.
+KEY_FILL = 0x7FFFFFFF
+
+
+def support_key(cost: torch.Tensor, d: int) -> torch.Tensor:
+    """Packed (cost, d) keys; a cost of BIG (out of the image) gives KEY_FILL."""
+    return torch.where(cost >= BIG, KEY_FILL, (cost << 10) + d).to(torch.int32)
+
+
+def keys_fill(shape: tuple, device=None) -> torch.Tensor:
+    """Empty registers: (*shape, 4 classes, 2) keys."""
+    return torch.full((*shape, 4, 2), KEY_FILL, dtype=torch.int32, device=device)
+
+
+def keys_insert(keys: torch.Tensor, key: torch.Tensor, d: int) -> torch.Tensor:
+    """One more key at disparity ``d`` into its class's two least (3 ops)."""
+    out = keys.clone()
+    lo, hi = keys[..., d % 4, 0], keys[..., d % 4, 1]
+    out[..., d % 4, 0] = torch.minimum(lo, key)
+    out[..., d % 4, 1] = torch.minimum(hi, torch.maximum(lo, key))
+    return out
+
+
+def keys_merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The two least of each class of two lists."""
+    lo = torch.minimum(a[..., 0], b[..., 0])
+    hi = torch.minimum(torch.maximum(a[..., 0], b[..., 0]), torch.minimum(a[..., 1], b[..., 1]))
+    return torch.stack([lo, hi], dim=-1)
+
+
+def keys_finalize(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(best, min1, min2) from the classes, as _finalize4 gives them."""
+    fill = keys == KEY_FILL
+    cost = torch.where(fill, BIG, keys >> 10)
+    d = torch.where(fill, 0, keys & 1023)
+    least = keys[..., 0].amin(dim=-1)
+    best = torch.where(least == KEY_FILL, 0, least & 1023)
+    min1 = torch.where(least == KEY_FILL, BIG, least >> 10)
+    inside = (d[..., 0] - best[..., None]).abs() <= 1
+    min2 = torch.where(inside, cost[..., 1], cost[..., 0]).amin(dim=-1)
     return best, min1, min2
 
 

@@ -1,6 +1,6 @@
 """The port stands alone: nothing under src/repro_torch/, in chip_smoke.py,
-stage_profile.py or service_profile.py imports jax or the reference package,
-and importing the port loads no jax."""
+dense_profile.py, stage_profile.py or service_profile.py imports jax or the
+reference package, and importing the port loads no jax."""
 import ast
 import os
 import subprocess
@@ -11,7 +11,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "stage_profile.py", ROOT / "service_profile.py",
+    ROOT / "chip_smoke.py", ROOT / "dense_profile.py", ROOT / "stage_profile.py",
+    ROOT / "service_profile.py",
 ]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 

@@ -118,6 +118,47 @@ def test_wrappers_reject_bad_inputs():
         dense_kernel.dense_match_stream(*args, **{**kw, "disp_min": -1})
 
 
+def test_support_wrapper_reads_strided_candidate_rows_on_cpu():
+    """The candidate rows as a strided view of the descriptor maps (what
+    core/support.py passes) give the grid the gathered rows give."""
+    from repro_torch.core.support import candidate_rows
+
+    rng = np.random.default_rng(3)
+    maps = torch.as_tensor(rng.integers(-40, 41, (2, 2, 23, 37, 16)).astype(np.int8))
+    _, _, kw = support_inputs(SUPPORT_CASES[0])
+    step = kw["step"]
+    vs = torch.arange(23 // step) * step + step // 2
+    for dl, dr in ((maps[0, 0], maps[1, 0]), (maps[0], maps[1])):   # a frame, a wave
+        rows_l, rows_r = candidate_rows(dl, step), candidate_rows(dr, step)
+        assert not rows_l.is_contiguous()
+        assert rows_l.data_ptr() == dl[..., step // 2, :, :].data_ptr()
+        got = support_kernel.support_match(rows_l, rows_r, **kw)
+        want = support_kernel.support_match(dl[..., vs, :, :].contiguous(),
+                                            dr[..., vs, :, :].contiguous(), **kw)
+        assert torch.equal(got, want)
+
+
+def test_support_wrapper_limits_hold_on_cpu():
+    """num_disp above SUPPORT_MAX_DISP, widths above SUPPORT_MAX_WIDTH and
+    too many rows raise on the CPU as on the card; the disparity limit
+    itself is taken."""
+    dl, dr, kw = support_inputs(SUPPORT_CASES[5])
+    tl, tr = torch.as_tensor(dl), torch.as_tensor(dr)
+    top = support_kernel.SUPPORT_MAX_DISP
+    out = support_kernel.support_match(tl, tr, **{**kw, "num_disp": top})
+    want = ref.support_match_rows_streaming(tl, tr, **{**kw, "num_disp": 24})
+    assert torch.equal(out, want)                   # every d past the width is off the image
+    with pytest.raises(ValueError, match="num_disp <="):
+        support_kernel.support_match(tl, tr, **{**kw, "num_disp": top + 1})
+    zero = torch.zeros((1, 1, 16), dtype=torch.int8)
+    wide = zero.expand(1, support_kernel.SUPPORT_MAX_WIDTH + 1, 16)
+    with pytest.raises(ValueError, match="width"):
+        support_kernel.support_match(wide, wide, **kw)
+    tall = zero.expand(support_kernel.SUPPORT_MAX_ROWS + 1, 1, 16)
+    with pytest.raises(ValueError, match="rows"):
+        support_kernel.support_match(tall, tall, **kw)
+
+
 def test_stream_wrapper_limits_hold_on_cpu():
     """num_disp above STREAM_MAX_DISP and widths above STREAM_MAX_WIDTH
     raise on the CPU as on the card; the limit itself is taken."""

@@ -23,6 +23,7 @@ from torch_kernel_cases import (
     MEDIAN_CASES,
     SOBEL_CASES,
     SUPPORT_CASES,
+    SUPPORT_WIDE_CASES,
     WINDOWED_CASES,
     dense_inputs,
     median_map,
@@ -76,6 +77,39 @@ def test_support_kernel_matches_plain_on_card(case, cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", SUPPORT_WIDE_CASES, ids=[c[0] for c in SUPPORT_WIDE_CASES])
+def test_support_kernel_any_span_split_on_card(case, cuda_device):
+    """Rows too wide for one block's shared memory, split into 2, 4 and 8
+    spans (the cross-check reading other blocks' shared memory), give the
+    plain version's grid."""
+    dl, dr, kw = support_inputs(case)
+    tl, tr = torch.as_tensor(dl, device=cuda_device), torch.as_tensor(dr, device=cuda_device)
+    got = support_kernel.support_match(tl, tr, **kw)
+    assert torch.equal(got, ref.support_match_rows_streaming(tl, tr, **kw))
+    assert int((got != -1.0).sum()) > 0
+
+
+@pytest.mark.gpu
+def test_support_kernel_reads_strided_candidate_rows_on_card(cuda_device):
+    """A wave's descriptor maps, read through the candidate rows' strided
+    view (core/support.py's path), against the plain version on the
+    gathered rows."""
+    from repro_torch.core.support import candidate_rows
+
+    rng = np.random.default_rng(4)
+    maps = rng.integers(-40, 41, (2, 3, 47, 97, 16)).astype(np.int8)
+    maps[1, :, :, :90] = maps[0, :, :, 7:]                 # the right view shifted by 7
+    dl, dr = (torch.as_tensor(m, device=cuda_device) for m in maps)
+    _, _, kw = support_inputs(SUPPORT_CASES[0])
+    step = kw["step"]
+    got = support_kernel.support_match(candidate_rows(dl, step), candidate_rows(dr, step), **kw)
+    vs = torch.arange(47 // step, device=cuda_device) * step + step // 2
+    want = ref.support_match_rows_streaming(dl[:, vs].flatten(0, 1), dr[:, vs].flatten(0, 1), **kw)
+    assert torch.equal(got, want.reshape(got.shape))
+    assert int((got != -1.0).sum()) > 0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", DENSE_CASES, ids=[c[0] for c in DENSE_CASES])
 def test_dense_kernel_matches_plain_on_card(case, cuda_device):
     dl, dr, mu, gm, kw = dense_inputs(case)
@@ -112,6 +146,53 @@ def test_sobel_kernel_matches_plain_on_card(case, cuda_device):
     assert sobel_kernel.launches == before + 1
     want = ref.sobel_rows_ref(*ref.edge_row_views(img.to(torch.int32)))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,offset", [(np.uint8, 1), (np.uint8, 3), (np.uint8, 7),
+                                          (np.uint8, 15), (np.int32, 4), (np.float32, 12)])
+def test_sobel_kernel_reads_rows_at_any_offset_on_card(dtype, offset, cuda_device):
+    """A stack of both views of two frames at KITTI width (rows 1242
+    elements apart) whose first byte lies `offset` bytes past a 16-byte
+    boundary, as a wave's slices do: the kernel's 16-byte chunks equal the
+    plain version."""
+    rng = np.random.default_rng(offset)
+    shape = (2, 2, 19, 1242)
+    img = (rng.integers(0, 256, shape) if dtype == np.uint8
+           else rng.uniform(-20, 256, shape)).astype(dtype)
+    view = _at_offset(img, offset, cuda_device)
+    assert view.data_ptr() % 16 == offset
+    got = sobel_kernel.sobel(view)
+    want = ref.sobel_rows_ref(*ref.edge_row_views(view.to(torch.int32)))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,gx_offset,gy_offset", [(1242, 1, 1), (1242, 3, 10), (1242, 15, 0),
+                                                   (37, 8, 5), (15, 7, 9), (200, 0, 13)])
+def test_sobel_kernel_writes_rows_at_any_offset_on_card(w, gx_offset, gy_offset, cuda_device):
+    """gx and gy that start at other byte offsets than 16-byte boundaries,
+    each its own (the kernel's entry point takes any): every output byte
+    equals the plain version and no byte outside the maps is written."""
+    rng = np.random.default_rng(w + gx_offset)
+    img = torch.as_tensor(rng.integers(0, 256, (2, 11, w)).astype(np.uint8), device=cuda_device)
+    n, h = img.shape[0], img.shape[1]
+    guard = 32
+    outs = []
+    for offset in (gx_offset, gy_offset):
+        raw = torch.full((offset + img.numel() + guard,), 0x5A, dtype=torch.uint8,
+                         device=cuda_device)
+        outs.append((raw, raw[offset : offset + img.numel()].view(torch.int8).view(img.shape)))
+    err = sobel_kernel._kernel()(img.data_ptr(), outs[0][1].data_ptr(), outs[1][1].data_ptr(),
+                                 n, h, w, sobel_kernel.KINDS[torch.uint8],
+                                 torch.cuda.current_stream(cuda_device).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    want = ref.sobel_rows_ref(*ref.edge_row_views(img.to(torch.int32)))
+    for (raw, got), offset, expect in zip(outs, (gx_offset, gy_offset), want):
+        assert torch.equal(got, expect)
+        assert bool((raw[:offset] == 0x5A).all())
+        assert bool((raw[offset + img.numel():] == 0x5A).all())
 
 
 @pytest.mark.gpu

@@ -26,10 +26,20 @@ def _desc(rng, shape, kind):
         return np.tile(base, (1, -(-shape[1] // 4), 1))[:, : shape[1]].copy()
     if kind == "zero":              # every cost 0, no texture
         return np.zeros(shape, np.int8)
+    if kind == "runs":              # columns in equal pairs: costs tie at d and d + 1
+        base = rng.integers(-40, 41, (shape[0], -(-shape[1] // 2), shape[2])).astype(np.int8)
+        return np.repeat(base, 2, axis=1)[:, : shape[1]].copy()
     raise ValueError(kind)
 
 
-# (id, rows, width, num_disp, disp_min, left kind, right kind, seed)
+# (id, rows, width, num_disp, disp_min, left kind, right kind, seed).  The
+# support kernel takes a row whole in one block when it is narrower than 256
+# columns, else (with few rows, as here) in 8 spans of columns, one block
+# each (8 spans of 36 at W = 257, one column past 8 spans of 32, the last
+# holding 5 columns; the KITTI and Tsukuba rows); right-view columns in
+# groups of 4 and d in chunks of 32 (D = 40 and 100 end inside a chunk);
+# "runs" descriptors with the right view shifted by 32 tie the least cost at
+# d = 31 and 32, on both sides of a chunk boundary.
 SUPPORT_CASES = [
     ("random-w37-d16", 3, 37, 16, 0, "random", "random", 0),
     ("ternary-w53-d24", 2, 53, 24, 0, "ternary", "ternary", 1),
@@ -37,6 +47,21 @@ SUPPORT_CASES = [
     ("zero-w21-d8", 1, 21, 8, 0, "zero", "zero", 3),
     ("dmin4-w47-d20", 3, 47, 20, 4, "random", "random", 4),
     ("sweep-past-edge-w13-d24", 2, 13, 24, 0, "random", "random", 5),
+    ("span-plus-one-w257-d40", 2, 257, 40, 0, "random", "random", 6),
+    ("chunk-end-w133-d100", 2, 133, 100, 0, "random", "random", 7),
+    ("ties-across-chunks-w97-d64", 2, 97, 64, 0, "runs", "shift32", 8),
+    ("kitti-2-rows-w1242-d128", 2, 1242, 128, 0, "random", "random", 10),
+    ("tsukuba-2-rows-w640-d64", 2, 640, 64, 0, "random", "random", 11),
+]
+
+# Support cases for the card only (the plain version takes seconds there):
+# 90 rows cover two thirds of an H100's 132 SMs, so the kernel gives a row
+# one block, unless its span would not fit shared memory; these widths give
+# 2, 4 and 8 blocks a row.
+SUPPORT_WIDE_CASES = [
+    ("wide-2-blocks-w5800-d32", 90, 5800, 32, 0, "random", "random", 12),
+    ("wide-4-blocks-w11600-d32", 90, 11600, 32, 0, "random", "random", 13),
+    ("wide-8-blocks-w23200-d32", 90, 23200, 32, 0, "random", "random", 14),
 ]
 
 
@@ -44,7 +69,11 @@ def support_inputs(case):
     _, rows, w, nd, dmin, kl, kr, seed = case
     rng = np.random.default_rng(seed)
     dl = _desc(rng, (rows, w, 16), kl)
-    dr = _desc(rng, (rows, w, 16), kr)
+    if kr == "shift32":
+        dr = _desc(rng, (rows, w, 16), "random")
+        dr[:, : w - 32] = dl[:, 32:]
+    else:
+        dr = _desc(rng, (rows, w, 16), kr)
     if kl == "random" and kr == "random":
         # Make the right view a shifted copy of the left, so support points exist.
         shift = rng.integers(1, max(2, min(nd, w) - 1))
@@ -139,23 +168,32 @@ def windowed_inputs(case):
     return dl, dr, mu.astype(np.float32), cand.astype(np.int32), kw
 
 
-# Sobel images: (id, height, width, dtype, seed).  Floats carry fractions, which
-# the int32 cast truncates; 1-row and 1-column images take every edge clamp.
+# Sobel images: (id, height, width, dtype, least grey level, seed).  Floats
+# carry fractions, which the int32 cast truncates toward zero (negative ones
+# too); 1-row and 1-column images take every edge clamp.  The kernel reads
+# each type as it is, a thread taking 16 columns down 2 rows (widths 1, 15,
+# 17, 33, 129 and 200: below, at and past 16 columns, rows ending inside a
+# chunk; odd heights: a strip past the last row), rows at any offset.
 SOBEL_CASES = [
-    ("uint8-17x33", 17, 33, np.uint8, 0),
-    ("int32-16x24", 16, 24, np.int32, 1),
-    ("float32-5x7", 5, 7, np.float32, 2),
-    ("float32-1x9", 1, 9, np.float32, 3),
-    ("uint8-8x1", 8, 1, np.uint8, 4),
+    ("uint8-17x33", 17, 33, np.uint8, 0, 0),
+    ("int32-16x24", 16, 24, np.int32, 0, 1),
+    ("float32-5x7", 5, 7, np.float32, 0, 2),
+    ("float32-1x9", 1, 9, np.float32, 0, 3),
+    ("uint8-8x1", 8, 1, np.uint8, 0, 4),
+    ("float32-negative-6x15", 6, 15, np.float32, -256, 5),
+    ("uint8-9x17", 9, 17, np.uint8, 0, 6),
+    ("int32-negative-12x33", 12, 33, np.int32, -300, 7),
+    ("uint8-1x200", 1, 200, np.uint8, 0, 8),
+    ("float32-10x129", 10, 129, np.float32, -20, 9),
 ]
 
 
 def sobel_image(case):
-    _, h, w, dtype, seed = case
+    _, h, w, dtype, low, seed = case
     rng = np.random.default_rng(seed)
     if dtype == np.float32:
-        return rng.uniform(0, 256, (h, w)).astype(np.float32)
-    return rng.integers(0, 256, (h, w)).astype(dtype)
+        return rng.uniform(low, 256, (h, w)).astype(np.float32)
+    return rng.integers(low, 256, (h, w)).astype(dtype)
 
 
 # Median maps: (id, height, width, invalid share, seed).  Integral disparities
