@@ -16,11 +16,18 @@ Phases (any failure exits nonzero):
     median; on a wave of four different pairs the support, streaming and
     candidate-window kernels against the plain version on the same stacked
     inputs and slot by slot against a per-frame launch, Sobel on both views
-    of the wave and the median on the wave's maps; the support kernel at
+    of the wave and the median on the wave's maps; the warm band kernel on a
+    frame of a pan seeded by the card's cold output of the frame before
+    (band 8, timed; bands 0 and 2; bands pushed to either end of the range;
+    an all-invalid prior; a stack of four frames against the plain version
+    and against per-frame launches); the support kernel at
     every split of a row into spans (1, 2, 4, 8 blocks a row) and on the
     candidate rows' strided views; both dense kernels, the support kernel
-    (at every split) and the Sobel kernel (uint8, int32 and float32 stacks at
-    byte offsets 0-15) on every case of ``tests/torch_kernel_cases.py``;
+    (at every split), the Sobel kernel (uint8, int32 and float32 stacks at
+    byte offsets 0-15), the median kernel (stacks of two maps at float
+    offsets 0-3: thin maps, odd widths, all-invalid and invalid-free maps)
+    and the warm kernel (sigma 1 and 1.5) on every case of
+    ``tests/torch_kernel_cases.py``;
     kernel, plain and bound times (every kernel time from a profiler row of
     that kernel's symbol);
     flash attention at qwen2.5-32b's width against its plain version, with
@@ -54,7 +61,17 @@ Phases (any failure exits nonzero):
     that fails one wave's dense stage once (its frames retried, still
     equal) and poisons one frame (delivered with ``error`` while its
     wave-mates recover); then ``repro_torch.launch.serve stereo`` once;
- 9. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
+ 9. warm video: a 5-frame pan at elas-kitti's full size with a scene cut at
+    frame 3 through ``StereoService(batch=1, warm_start=True,
+    device="cuda")``, one frame at a time (submit, then ``collect(1)``), at
+    the default post-hoc bound (``rerun_threshold=0.15``) and at 0.5:
+    every delivered frame equal to the port's CPU service's on the same
+    sequence, the warm counters equal to the CPU run's and to the sequence's
+    shape (2 cold frames, 1 scene change, 3 warm frames), the launches of
+    each kernel as the warm, cold and re-run frames dictate; the warm and
+    cold frames' latency, and the warm and cold dense stage's time (CUDA
+    events) on the same frame;
+10. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
 
 Every time is printed with the card's name and power limit.  Each profiled
 frame or wave also leaves its device-side rows, by time, in
@@ -104,6 +121,10 @@ OPS_MASK = 4
 OPS_SLOT = 4
 OPS_SOBEL = 30
 OPS_MEDIAN = 56
+# A warm candidate's energy: subtract, square, FMA, divide, negate, convert,
+# FMA, and the compare-and-keep (8).  The warm bound counts each in-image
+# band candidate of a pixel and view once (a SAD and an energy).
+OPS_WARM_ENERGY = 8
 
 GOLDEN_SHA256 = "91e3ce9df8a9d01f9b9905bd2aabe4f0791dd06329e1c6f015557054988c018b"
 # Card vs CPU output.  The dense energy is one float32 sequence on both
@@ -132,6 +153,9 @@ FLASH_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (1e-5, 2.0 ** -7)}
 FLASH_PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 SERVICE_STREAMS = 2       # streams of the service phase
 SERVICE_FRAMES = 8        # frames per stream (seeds 0-15)
+WARM_BAND = 8             # the service's default warm band
+VIDEO_FRAMES = 5          # frames of the warm video phase
+VIDEO_CUT = 3             # its scene cut
 
 
 def main() -> int:
@@ -150,7 +174,7 @@ def main() -> int:
     from repro_torch.core.postprocess import gap_interpolation, lr_consistency
     from repro_torch.core.support import candidate_rows
     from repro_torch.core.tiling import TileSpec
-    from repro_torch.data.stereo import synthetic_stereo_pair
+    from repro_torch.data.stereo import synthetic_stereo_pair, synthetic_stereo_sequence
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import dense_match as dense_kernel
     from repro_torch.kernels import flash_attention as flash_kernel
@@ -177,6 +201,11 @@ def main() -> int:
          "src/repro_torch/kernels/csrc/sobel.cu", "src/repro/kernels/sobel.py:32"),
         ("median3x3", median_kernel, "launches",
          "src/repro_torch/kernels/csrc/median.cu", "src/repro/kernels/median.py:18"),
+        # The reference's warm scan is XLA (core/dense.py:250
+        # dense_match_warm_xla), whose tile body is this oracle.
+        ("dense_match_warm", dense_kernel, "warm_launches",
+         "src/repro_torch/kernels/csrc/dense_match_warm.cu",
+         "src/repro/kernels/ref.py:827"),
         ("flash_attention", flash_kernel, "launches",
          "src/repro_torch/kernels/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention.py:108"),
@@ -675,6 +704,138 @@ def main() -> int:
     if failed:
         raise AssertionError(f"sobel kernel disagrees with its plain version on {failed}")
 
+    failed, pixels = [], 0
+    for case in cases.MEDIAN_CASES:
+        stack = torch.as_tensor(cases.median_stack(case))
+        for offset in range(4):
+            raw = torch.empty(stack.numel() + offset, device=dev)
+            view = raw[offset:].view(stack.shape)
+            view.copy_(stack)
+            mism, _ = mismatches(median_kernel.median3x3(view),
+                                 ref.median3x3_rows_ref(*ref.edge_row_views(view)))
+            pixels += stack.numel()
+            if mism:
+                failed.append(f"{case[0]} offset {offset}: {mism}")
+    print(f"kernel median3x3 on the {len(cases.MEDIAN_CASES)} cases of "
+          f"tests/torch_kernel_cases.py, two maps a stack at float offsets 0-3: mismatches "
+          f"{failed or 0} of {pixels} {card}")
+    if failed:
+        raise AssertionError(f"median kernel disagrees with its plain version on {failed}")
+
+    # ---- the warm band kernel ----
+    def warm_kw(p, band):
+        return dict(num_disp=p.num_disp, disp_min=p.disp_min, warm_band=band, beta=p.beta,
+                    sigma=p.sigma, match_texture=p.match_texture)
+
+    def warm_plain(args, kw):
+        """The plain version on ([B,] H, W) inputs, as the wrapper's CPU
+        branch reshapes them."""
+        dl, dr, mu_l, mu_r = args
+        w = mu_l.shape[-1]
+        out = ref.dense_match_rows_warm_ref(dl.reshape(-1, w, 16), dr.reshape(-1, w, 16),
+                                            mu_l.reshape(-1, w), mu_r.reshape(-1, w), **kw)
+        return tuple(o.reshape(mu_l.shape) for o in out)
+
+    def warm_candidates(mu_l, mu_r, p, band) -> int:
+        """In-image band candidates of every (pixel, view): the work this
+        data needs (the kernel evaluates exactly these)."""
+        w = mu_l.shape[-1]
+        u = torch.arange(w, device=dev, dtype=torch.float32)
+        lo_d, hi_d = float(p.disp_min), float(p.disp_min + p.num_disp - 1)
+        total = 0
+        for mu, lim in ((mu_l, u), (mu_r, w - 1 - u)):
+            r = torch.round(mu)
+            lo = (r - band).clamp(lo_d, hi_d)
+            hi = torch.minimum((r + band).clamp(lo_d, hi_d), lim)
+            total += int(torch.nan_to_num(hi - lo + 1, nan=0.0).clamp(min=0).to(torch.int64).sum())
+        return total
+
+    def warm_inputs(cfg, d_max, prev=None):
+        """The warm kernel's inputs for frames 1-4 of a pan, each seeded by the
+        card's cold output of the frame before (or by ``prev``): descriptors
+        (4, H, W, 16) and priors (4, H, W)."""
+        p = cfg.params
+        seq = synthetic_stereo_sequence(WAVE + 1, height=cfg.height, width=cfg.width,
+                                        d_max=d_max, motion=2, seed=0)
+        if prev is None:
+            prev = torch.stack([pipeline.ielas_disparity(il, ir, p) for il, ir, _ in seq[:WAVE]])
+        left = torch.as_tensor(np.stack([f[0] for f in seq[1:]]), device=dev)
+        right = torch.as_tensor(np.stack([f[1] for f in seq[1:]]), device=dev)
+        dl, dr = pipeline.ielas_descriptor_stage_batched(left, right)
+        mu_l, mu_r = pipeline._warm_priors(prev, cfg.height, cfg.width, p)
+        return [dl, dr, mu_l, mu_r]
+
+    def check_warm(label, args, p, band, time_it=False):
+        kw = warm_kw(p, band)
+        got = dense_kernel.dense_match_warm(*args, **kw)
+        want = warm_plain(args, kw)
+        torch.cuda.synchronize()
+        mism, err = mismatches(got, want)
+        n = args[2].numel()
+        line = (f"kernel dense_match_warm {label} {tuple(args[2].shape)} D={p.num_disp} band "
+                f"{band}: mismatches {mism} of {2 * n}, max_abs_err {err}")
+        if time_it:
+            cands = warm_candidates(args[2], args[3], p, band)
+            nbytes = nbytes_of(*args) + 2 * 4 * n
+            b_ms, b_by = bound(nbytes, cands * (OPS_SAD + OPS_WARM_ENERGY))
+            ms, call = kernel_ms(lambda: dense_kernel.dense_match_warm(*args, **kw),
+                                 "dense_match_warm_kernel", 20)
+            plain = cuda_ms(lambda: warm_plain(args, kw), 3)
+            line += (f", kernel {ms:.4f} ms (per call {call:.4f} ms), plain {plain:.3f} ms, "
+                     f"bound {b_ms:.5f} ms ({b_by}; {nbytes} B, {cands} in-image band "
+                     f"candidates of {2 * n * p.num_disp} (pixel, d, view))")
+            record("dense_match_warm", label, err, ms, plain, b_ms, b_by)
+        print(f"{line} {card}")
+        if mism:
+            raise AssertionError(f"warm kernel disagrees with its plain version ({label})")
+
+    for cfg, d_max in ((KITTI, 100.0), (TSUKUBA, 48.0)):
+        p = cfg.params
+        wave_args = warm_inputs(cfg, d_max)
+        frame = [a[0] for a in wave_args]
+        check_warm(cfg.name, frame, p, WARM_BAND, time_it=True)
+        check_warm(f"{cfg.name} band 0", frame, p, 0)
+        check_warm(f"{cfg.name} band 2 (band_radius 2 under warm_band 8)", frame, p, 2)
+        for shift, end in ((-300.0, "low"), (300.0, "high")):
+            shifted = frame[:2] + [frame[2] + shift, frame[3] + shift]
+            check_warm(f"{cfg.name} bands at the range's {end} end", shifted, p, WARM_BAND)
+        invalid = warm_inputs(cfg, d_max, prev=torch.full((WAVE, cfg.height, cfg.width), -1.0,
+                                                          device=dev))
+        check_warm(f"{cfg.name} all-invalid prior", [a[0] for a in invalid], p, WARM_BAND)
+        check_warm(f"{cfg.name} batched B={WAVE}", wave_args, p, WARM_BAND)
+        kw = warm_kw(p, WARM_BAND)
+        got = dense_kernel.dense_match_warm(*wave_args, **kw)
+        per_frame = [dense_kernel.dense_match_warm(*(a[i] for a in wave_args), **kw)
+                     for i in range(WAVE)]
+        slot, _ = mismatches(got, [torch.stack(x) for x in zip(*per_frame)])
+        ms, _ = kernel_ms(lambda: dense_kernel.dense_match_warm(*wave_args, **kw),
+                          "dense_match_warm_kernel", 10)
+        per = WAVE * kernel_ms(lambda: [dense_kernel.dense_match_warm(*(a[i] for a in wave_args),
+                                                                      **kw)
+                                        for i in range(WAVE)], "dense_match_warm_kernel", 10)[0]
+        print(f"kernel dense_match_warm {cfg.name} batched B={WAVE}: mismatches {slot} against "
+              f"per-frame launches; one launch {ms:.4f} ms, {WAVE} per-frame launches "
+              f"{per:.4f} ms (device time) {card}")
+        if slot:
+            raise AssertionError(f"batched warm kernel disagrees with per-frame launches "
+                                 f"({cfg.name})")
+        del wave_args, frame, invalid, got, per_frame
+    failed, pixels = [], 0
+    for case in cases.WARM_CASES:
+        dl_, dr_, mu_, kw = cases.warm_inputs(case)
+        args = [torch.as_tensor(a, device=dev) for a in (dl_, dr_, mu_[0], mu_[1])]
+        for sigma in (kw["sigma"], 1.5):
+            mism, _ = mismatches(dense_kernel.dense_match_warm(*args, **{**kw, "sigma": sigma}),
+                                 ref.dense_match_rows_warm_ref(*args, **{**kw, "sigma": sigma}))
+            pixels += 2 * mu_[0].size
+            if mism:
+                failed.append(f"{case[0]} sigma {sigma}: {mism}")
+    print(f"kernel dense_match_warm on the {len(cases.WARM_CASES)} cases of "
+          f"tests/torch_kernel_cases.py, sigma 1 and 1.5: mismatches {failed or 0} of {pixels} "
+          f"{card}")
+    if failed:
+        raise AssertionError(f"warm kernel disagrees with its plain version on {failed}")
+
     import torch.nn.functional as F
 
     def flash_inputs(dtype) -> list:
@@ -768,7 +929,7 @@ def main() -> int:
     # ---- 4. single frame -------------------------------------------------
     launches = {k[0]: 0 for k in kernels}
     per_frame = {"support_match": 1, "dense_match_stream": 1, "dense_match_windowed": 0,
-                 "sobel": 1, "median3x3": 1, "flash_attention": 0}
+                 "sobel": 1, "median3x3": 1, "dense_match_warm": 0, "flash_attention": 0}
     frames = 6
     single = {}
     for cfg, d_max in ((KITTI, 100.0), (TSUKUBA, 48.0)):
@@ -1019,7 +1180,101 @@ def main() -> int:
     for k in launches:
         launches[k] += counts[k]
 
-    # ---- 9. summary --------------------------------------------------------
+    # ---- 9. warm video -----------------------------------------------------
+    cfg, d_max = KITTI, 100.0
+    p = cfg.params
+    seq = synthetic_stereo_sequence(VIDEO_FRAMES, height=cfg.height, width=cfg.width,
+                                    d_max=d_max, motion=2, cut_at=VIDEO_CUT, seed=0)
+    warm_counters = ("warm_frames", "cold_frames", "scene_changes", "warm_refreshes",
+                     "warm_reruns", "warm_resets")
+
+    def drive(svc):
+        """One frame at a time: frame t + 1 is submitted once t is delivered."""
+        outs = []
+        for t, (il, ir, _) in enumerate(seq):
+            svc.submit(t, il, ir)
+            outs += svc.collect(1, timeout=900, strict=True)
+        st = svc.stats()
+        return outs, {k: getattr(st, k) for k in warm_counters}
+
+    # Twice: at the default post-hoc bound (a warm result whose disagreement
+    # with its seed exceeds 0.15 * num_disp is re-run cold), and at 0.5.
+    shape = dict(warm_frames=VIDEO_FRAMES - 2, cold_frames=2, scene_changes=1,
+                 warm_refreshes=0, warm_resets=0)
+    cold_ids = {0, VIDEO_CUT}
+    for rerun_threshold in (0.15, 0.5):
+        kw = dict(batch=1, warm_start=True, rerun_threshold=rerun_threshold)
+        t0 = time.perf_counter()
+        with StereoService(p, device="cpu", **kw) as svc:
+            cpu_outs, cpu_counts = drive(svc)
+        cpu_s = time.perf_counter() - t0
+        svc = StereoService(p, device="cuda", **kw)
+        svc.warmup([(cfg.height, cfg.width)])
+        reset_counts()
+        with svc:
+            outs, video_counts = drive(svc)
+        counts = read_counts()
+        for k in launches:
+            launches[k] += counts[k]
+        bad = [c.error for c in outs if not c.ok]
+        if bad or len(outs) != VIDEO_FRAMES:
+            raise AssertionError(f"warm video: {len(outs)} delivered, failed {bad[:2]}")
+        mism = [int((c.disparity != x.disparity).sum()) for c, x in zip(outs, cpu_outs)]
+        for c in outs:
+            check_output(f"warm video frame {c.frame_id}", torch.as_tensor(c.disparity), cfg)
+        reruns = video_counts["warm_reruns"]
+        expect = {k: 0 for k in launches}
+        expect.update(support_match=2 + reruns, dense_match_stream=2 + reruns,
+                      sobel=VIDEO_FRAMES + reruns, median3x3=VIDEO_FRAMES + reruns,
+                      dense_match_warm=VIDEO_FRAMES - 2)
+        warm_lat = [round(c.latency_s * 1e3, 3) for c in outs if c.frame_id not in cold_ids]
+        cold_lat = [round(c.latency_s * 1e3, 3) for c in outs if c.frame_id in cold_ids]
+        print(f"warm video {cfg.name} {cfg.height}x{cfg.width}, {VIDEO_FRAMES} frames, cut at "
+              f"{VIDEO_CUT}, StereoService(batch=1, warm_start=True, rerun_threshold="
+              f"{rerun_threshold}): mismatches {mism} against the port's CPU service "
+              f"({cpu_s:.1f} s); counters {video_counts} (CPU run {cpu_counts}; "
+              f"{video_counts['warm_frames'] - reruns} warm frames delivered from the warm "
+              f"scan, {reruns} re-run cold); launches {counts}; latency (submit to delivery) "
+              f"warm frames {warm_lat} ms, cold frames {cold_lat} ms {card}")
+        if any(mism):
+            raise AssertionError(f"warm video: card vs CPU frames differ: {mism}")
+        if video_counts != cpu_counts or any(video_counts[k] != v for k, v in shape.items()):
+            raise AssertionError(f"warm video: counters {video_counts}, CPU {cpu_counts}, "
+                                 f"expected {shape}")
+        if counts != expect:
+            raise AssertionError(f"warm video: launches {counts}, expected {expect}")
+
+    # The dense stage of frame 1, warm (seeded by the delivered frame 0) and
+    # cold (after the support stage), and the whole frame, on the card.
+    il, ir, _ = seq[1]
+    left, right = torch.as_tensor(il, device=dev), torch.as_tensor(ir, device=dev)
+    prev = torch.as_tensor(outs[0].disparity, device=dev)
+    dl, dr, sup = pipeline.ielas_support_stage(left, right, p)
+    sup = pipeline.ielas_interpolate_stage(sup, p)
+    cold_dense = cuda_ms(lambda: pipeline.ielas_dense_stage(dl, dr, sup, p), 5)
+    warm_dense = cuda_ms(lambda: pipeline.ielas_warm_dense_stage(dl, dr, prev, p), 5)
+
+    def walls(fn) -> float:
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return median_of(times) * 1e3
+
+    def warm_frame():
+        dl_, dr_ = pipeline.ielas_descriptor_stage_batched(left[None], right[None])
+        return pipeline.ielas_warm_dense_stage(dl_[0], dr_[0], prev, p)
+
+    cold_wall = walls(lambda: pipeline.ielas_disparity(il, ir, p))
+    warm_wall = walls(warm_frame)
+    print(f"warm video {cfg.name} frame 1: dense stage warm {warm_dense:.3f} ms vs cold "
+          f"{cold_dense:.3f} ms (CUDA events, mean of 5); frame warm {warm_wall:.3f} ms "
+          f"(descriptors + warm dense stage) vs cold {cold_wall:.3f} ms (ielas_disparity), "
+          f"wall, median of 5 {card}")
+
+    # ---- 10. summary -------------------------------------------------------
     shown = {"flash_attention": "qwen2.5-32b bfloat16 causal"}
     entries = []
     for kname, _, _, source, replaces in kernels:

@@ -2,11 +2,13 @@
 """What bounds the stereo kernels on one card: variants timed in turns.
 
     python3 dense_profile.py [--rounds N] [--reps N] [--sass-of PARENT_SUPPORT_CU]
+                             [--median-of PARENT_MEDIAN_CU]
 
 For ``elas-kitti`` and ``elas-tsukuba`` (seed 0) it prepares one frame's
 inputs on the card, builds variants of
 ``src/repro_torch/kernels/csrc/dense_match_stream.cu``,
-``dense_match_windowed.cu``, ``support_match.cu`` and ``sobel.cu`` (text
+``dense_match_windowed.cu``, ``support_match.cu``, ``sobel.cu``, ``median.cu``
+and ``dense_match_warm.cu`` (text
 substitutions into copies under ``build/dense_profile/``; the sources
 themselves are not changed), and times each with CUDA events over
 ``--reps`` back-to-back launches, in ``--rounds`` rounds of alternating
@@ -35,7 +37,17 @@ launch rate bounds below ~10 us):
 * ``loads only`` (stream: return after the block's loads and barrier;
   support: after staging the block's descriptors; Sobel: the rows' loads
   and one byte stored a row) and ``staging only`` (windowed: stage the
-  windows, mark nothing).
+  windows, mark nothing);
+* median (on the map the path hands it, elas-kitti's and elas-tsukuba's
+  frame): ``loads and stores only`` (each median replaced by one add),
+  ``1 / 4 rows a thread`` (2 as built; checked), ``8 warps a block`` (4 as
+  built; checked), and with ``--median-of`` another ``median.cu`` (e.g. a
+  parent's; checked);
+* warm band kernel (frame 1 of a pan seeded by the card's cold output of
+  frame 0, band 8): ``L2-resident`` (every block reads one row's inputs),
+  ``no division`` (the prior's division replaced by a negation), ``SAD
+  only`` (the energy replaced by one FMA) and ``no candidates`` (the
+  thread's own loads and the store only).
 
 It also prints the candidate counts per pixel and view (from the bitmasks and
 priors) and the share of a warp's lanes busy while it walks them (the mean
@@ -122,6 +134,35 @@ VARIANTS = {
                         "      store_chunk(gy + f, oy, ny, nv, nvn, has_prev, has_next);\n",
                         "      gx[f] = (int8_t)(ox[0] + nx[0]);\n")],
     },
+    "median": {
+        "as built": [],
+        "loads and stores only": [(
+            "        const float c = v[r + 1][k + 1];\n"
+            "        float x[9];\n"
+            "#pragma unroll\n"
+            "        for (int i = 0; i < 9; ++i) {\n"
+            "          const float nb = v[r + i / 3][k + i % 3];\n"
+            "          x[i] = nb == kInvalid ? c : nb;\n"
+            "        }\n"
+            "        o[k] = c == kInvalid ? kInvalid : median9(x);\n",
+            "        o[k] = v[r][k] + v[r + 2][k + 2];\n")],
+        **{f"{r} row{'s' * (r > 1)} a thread": [("constexpr int kRows = 2;",
+                                                    f"constexpr int kRows = {r};")]
+           for r in (1, 4)},
+        "8 warps a block": [("constexpr int kWarps = 4;", "constexpr int kWarps = 8;")],
+    },
+    "dense_match_warm": {
+        "as built": [],
+        "L2-resident": [("  if (row >= rows) return;\n",
+                         "  if (row >= rows) return;\n  const int mid_row = rows / 2;\n"
+                         "#define row mid_row\n")],
+        "no division": [("  const float prior = -__fdiv_rn(1.0f, q);\n",
+                         "  const float prior = -q;\n")],
+        "SAD only": [("      const float e = warm_energy(sad, (float)d, mu, beta, inv_2s2);\n",
+                      "      const float e = __fmaf_rn(beta, (float)sad, (float)d);\n")],
+        "no candidates": [("    for (int d = lo; d <= hi; ++d) {\n",
+                           "    for (int d = lo; d <= hi && d < lo; ++d) {\n")],
+    },
 }
 
 
@@ -172,6 +213,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument("--sass-of", default=None,
                     help="another support_match.cu (e.g. a parent's) to count SASS of")
+    ap.add_argument("--median-of", default=None,
+                    help="another median.cu (e.g. a parent's) to time beside the median")
     args = ap.parse_args()
 
     import torch
@@ -184,10 +227,12 @@ def main() -> int:
     from repro_torch.configs.elas_stereo import KITTI, TSUKUBA
     from repro_torch.core import pipeline
     from repro_torch.core.dense import candidate_bitmask_rows, candidate_set
-    from repro_torch.data.stereo import synthetic_stereo_pair
+    from repro_torch.core.postprocess import gap_interpolation, lr_consistency
+    from repro_torch.data.stereo import synthetic_stereo_pair, synthetic_stereo_sequence
     from repro_torch.kernels import _build, ref
     from repro_torch.core.support import candidate_rows
     from repro_torch.kernels import dense_match as dense_kernel
+    from repro_torch.kernels import median as median_kernel
     from repro_torch.kernels import sobel as sobel_kernel
     from repro_torch.kernels import support_match as support_kernel
 
@@ -220,6 +265,9 @@ def main() -> int:
             jobs[(src, label)] = start_build(text, f"{src}-{re.sub('[^A-Za-z0-9-]+', '_', label)}")
     if args.sass_of:
         jobs[("sass-of", "")] = start_build(Path(args.sass_of).read_text(), "support_match-sass_of")
+    if args.median_of:
+        jobs[("median", "given source")] = start_build(Path(args.median_of).read_text(),
+                                                      "median-given")
     libs = {}
     for key, (proc, so) in jobs.items():
         log, _ = proc.communicate()
@@ -317,6 +365,21 @@ def main() -> int:
         views = torch.stack([torch.as_tensor(il, device=dev), torch.as_tensor(ir, device=dev)])
         gx = torch.empty_like(views, dtype=torch.int8)
         gy = torch.empty_like(gx)
+        # The median's input on the path, and the warm kernel's: frame 1 of a
+        # pan, seeded by the card's cold output of frame 0.
+        med_in = gap_interpolation(lr_consistency(*dense_kernel.dense_match_stream(*sargs, **skw),
+                                                  p), p)
+        med_out = torch.empty_like(med_in)
+        seq = synthetic_stereo_sequence(2, height=h, width=w, d_max=d_max, motion=2, seed=0)
+        prev = pipeline.ielas_disparity(seq[0][0], seq[0][1], p)
+        wdl, wdr = pipeline.ielas_descriptor_stage_batched(
+            torch.as_tensor(seq[1][0], device=dev)[None], torch.as_tensor(seq[1][1], device=dev)[None])
+        wmu_l, wmu_r = pipeline._warm_priors(prev, h, w, p)
+        warm_args = (wdl[0], wdr[0], wmu_l, wmu_r)
+        warm_kw = dict(num_disp=p.num_disp, disp_min=p.disp_min, warm_band=8, beta=p.beta,
+                       sigma=p.sigma, match_texture=p.match_texture)
+        print(f"{cfg.name}: median input {int((med_in == -1).sum())} invalid pixels of "
+              f"{med_in.numel()} {card}")
 
         def current() -> int:
             return torch.cuda.current_stream().cuda_stream
@@ -350,6 +413,18 @@ def main() -> int:
                                    p.disp_min, current()),
                         lambda: int((sup_out != ref.support_match_rows_streaming(
                             *rows, **supkw)).sum()))
+            if src == "median":
+                fn = bind(lib, "ielas_median3x3", median_kernel.ARGTYPES)
+                return (lambda: fn(med_in.data_ptr(), med_out.data_ptr(), 1, h, w, current()),
+                        lambda: int((med_out != ref.median3x3_rows_ref(
+                            *ref.edge_row_views(med_in))).sum()))
+            if src == "dense_match_warm":
+                fn = bind(lib, "ielas_dense_match_warm", dense_kernel.WARM_ARGTYPES)
+                return (lambda: fn(*(t.data_ptr() for t in (*warm_args, out_l, out_r)), 1, h, w,
+                                   p.num_disp, p.disp_min, 8, p.beta, 1.0 / (2.0 * p.sigma ** 2),
+                                   p.match_texture, current()),
+                        lambda: sum(int((o != x).sum()) for o, x in zip(
+                            (out_l, out_r), ref.dense_match_rows_warm_ref(*warm_args, **warm_kw))))
             fn = bind(lib, "ielas_sobel", sobel_kernel.ARGTYPES)
             return (lambda: fn(views.data_ptr(), gx.data_ptr(), gy.data_ptr(), 2, h, w,
                                sobel_kernel.KINDS[views.dtype], current()),
@@ -361,7 +436,8 @@ def main() -> int:
             call, check = launch(src, lib)
             if call() != 0:
                 raise RuntimeError(f"{src} {label}: launch failed")
-            checked = label == "as built" or label.endswith(("blocks a row", "a thread", "sums"))
+            checked = label in ("as built", "given source", "8 warps a block") or label.endswith(
+                ("blocks a row", "a thread", "sums"))
             if checked and check():
                 raise AssertionError(f"{src} {label} disagrees with its plain version")
             runs[(src, label)] = call

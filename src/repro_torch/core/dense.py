@@ -20,6 +20,11 @@ argument picks one (:func:`repro_torch.core.tiling.dense_route`):
   (:func:`repro_torch.kernels.dense_match.dense_match_candidates`).
 
 Either way one kernel launch covers both views of a frame, or of a wave.
+
+:func:`dense_warm_both_views` is the warm-start variant (counterpart of
+``dense_match_warm_xla``): the band around a previous frame's disparity
+only, with a rational prior energy (:func:`repro_torch.kernels.dense_match
+.dense_match_warm`).
 """
 from __future__ import annotations
 
@@ -28,7 +33,11 @@ import torch
 from repro_torch.core.grid_vector import cell_index
 from repro_torch.core.params import ElasParams
 from repro_torch.core.tiling import STREAM, TileArg, dense_route
-from repro_torch.kernels.dense_match import dense_match_candidates, dense_match_stream
+from repro_torch.kernels.dense_match import (
+    dense_match_candidates,
+    dense_match_stream,
+    dense_match_warm,
+)
 
 
 def candidate_set(mu: torch.Tensor, grid_vec: torch.Tensor, p: ElasParams) -> torch.Tensor:
@@ -115,3 +124,23 @@ def dense_both_views_batched(
     if desc_l.dim() != 4:
         raise ValueError(f"descriptors must be (B, H, W, 16), got {tuple(desc_l.shape)}")
     return _dense(desc_l, desc_r, mu_l, mu_r, grid_vec_l, grid_vec_r, p, tile)
+
+
+def dense_warm_both_views(
+    desc_l: torch.Tensor,       # ([B,] H, W, 16) int8
+    desc_r: torch.Tensor,       # ([B,] H, W, 16) int8
+    mu_l: torch.Tensor,         # ([B,] H, W) float32 warm prior
+    mu_r: torch.Tensor,         # ([B,] H, W) float32
+    p: ElasParams,
+    warm_band: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Warm-start dense matching: (disp_l, disp_r), each ([B,] H, W), from
+    one kernel launch over every frame and both views.  The candidates are
+    the band ``round(mu) -/+ warm_band`` only (no grid vectors); the
+    reference's tile heights and precision are invisible in its output."""
+    if desc_l.dim() not in (3, 4):
+        raise ValueError(f"descriptors must be ([B,] H, W, 16), got {tuple(desc_l.shape)}")
+    return dense_match_warm(
+        desc_l, desc_r, mu_l, mu_r, num_disp=p.num_disp, disp_min=p.disp_min,
+        warm_band=warm_band, beta=p.beta, sigma=p.sigma, match_texture=p.match_texture,
+    )

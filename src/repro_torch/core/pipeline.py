@@ -12,6 +12,12 @@ the dense-matching datapath (paper Fig. 3):
 * :func:`ielas_dense_stage` -- plane priors, grid vectors, dense matching
   for both views (a dense kernel), post-processing (the median kernel).
 
+The warm-start stages serve video: :func:`ielas_descriptor_stage_batched`
+(descriptors only, the warm wave's whole support stage) and
+:func:`ielas_warm_dense_stage` / :func:`ielas_warm_dense_stage_batched`,
+whose priors come from the previous frame's disparity (:func:`_warm_priors`)
+and whose dense kernel scans only a band around them.
+
 The ``*_batched`` stages are the wave-shaped forms the serving engine
 runs: a leading batch axis of B frames, one launch of each kernel per
 wave, and every slot equal to the single-frame stage on that frame, bit
@@ -34,14 +40,22 @@ from typing import Optional
 import torch
 
 from repro_torch.core import descriptor as desc_mod
-from repro_torch.core.dense import dense_both_views, dense_both_views_batched
+from repro_torch.core.dense import (
+    dense_both_views,
+    dense_both_views_batched,
+    dense_warm_both_views,
+)
 from repro_torch.core.filtering import filter_support
 from repro_torch.core.grid_vector import build_grid_vector
 from repro_torch.core.interpolation import interpolate_support
 from repro_torch.core.params import ElasParams
 from repro_torch.core.postprocess import postprocess
-from repro_torch.core.prior import plane_prior, right_view_support
-from repro_torch.core.support import descriptors_and_support, extract_support_grid_batched
+from repro_torch.core.prior import plane_prior, right_view_support, support_from_disparity
+from repro_torch.core.support import (
+    INVALID,
+    descriptors_and_support,
+    extract_support_grid_batched,
+)
 from repro_torch.core.tiling import TileArg, dense_route
 from repro_torch.kernels.ref import xla_sum_f32
 
@@ -147,6 +161,87 @@ def ielas_dense_stage_batched(
     mu_l, mu_r, gv_l, gv_r = _dense_priors(support_left, h, w, p)
     disp_l, disp_r = dense_both_views_batched(dl, dr, mu_l, mu_r, gv_l, gv_r, p, tile=tile)
     return postprocess(disp_l, disp_r, p)
+
+
+def _warm_priors(
+    prev_disp: torch.Tensor, h: int, w: int, p: ElasParams
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Warm-start dense priors (mu_l, mu_r) from a previous disparity map
+    (H, W), or a wave of them (B, H, W), with the same leading axis.
+
+    The previous frame's disparity is re-gridded onto the support lattice
+    (:func:`~repro_torch.core.prior.support_from_disparity`), interpolated
+    with the paper's rule and planed into a smooth prior; the left view
+    keeps the previous value wherever it was valid (the plane fills the
+    holes), and the right view re-projects the re-gridded support as the
+    cold path re-projects the searched one.  Grids are built frame by frame;
+    the planes of both views of every frame come from one
+    :func:`plane_prior` call."""
+    lead = prev_disp.shape[:-2]
+    frames = prev_disp.reshape(-1, h, w)
+    grids = torch.stack([interpolate_support(support_from_disparity(f, p), p) for f in frames])
+    sup_r = torch.stack([interpolate_support(right_view_support(g, p), p) for g in grids])
+    mu_smooth, mu_r = plane_prior(torch.stack([grids, sup_r]), h, w, p)
+    mu_l = torch.where(frames != INVALID, frames, mu_smooth)
+    return mu_l.reshape(*lead, h, w), mu_r.reshape(*lead, h, w)
+
+
+def _warm_band(warm_band: int, band_radius: Optional[int]) -> int:
+    """The effective band: ``band_radius`` (degraded mode) narrows the warm
+    band by intersection, ``min(warm_band, band_radius)``."""
+    eff = warm_band if band_radius is None else min(warm_band, int(band_radius))
+    if eff < 0:
+        raise ValueError(f"warm band must be >= 0, got {eff}")
+    return eff
+
+
+def ielas_warm_dense_stage(
+    dl: torch.Tensor,             # (H, W, 16)
+    dr: torch.Tensor,
+    prev_disp: torch.Tensor,      # (H, W) the previous frame's disparity (the seed)
+    p: ElasParams,
+    warm_band: int = 8,
+    band_radius: Optional[int] = None,
+) -> torch.Tensor:
+    """Warm-start dense stage: the previous frame seeds the priors
+    (:func:`_warm_priors`) and the candidates are only the ``+-band`` band
+    around them, ``band = min(warm_band, band_radius)``; then
+    post-processing.  Not bitwise equal to the cold stage by design (the
+    serving engine's post-hoc check bounds the difference).  Also takes a
+    wave, as :func:`ielas_warm_dense_stage_batched`."""
+    band = _warm_band(warm_band, band_radius)
+    h, w = dl.shape[-3:-1]
+    mu_l, mu_r = _warm_priors(prev_disp, h, w, p)
+    disp_l, disp_r = dense_warm_both_views(dl, dr, mu_l, mu_r, p, band)
+    return postprocess(disp_l, disp_r, p)
+
+
+def ielas_warm_dense_stage_batched(
+    dl: torch.Tensor,             # (B, H, W, 16)
+    dr: torch.Tensor,
+    prev_disp: torch.Tensor,      # (B, H, W)
+    p: ElasParams,
+    warm_band: int = 8,
+    band_radius: Optional[int] = None,
+) -> torch.Tensor:
+    """Wave-shaped warm dense stage: (B, H, W) final left maps, one warm
+    kernel launch and one median launch for the wave; each slot equals
+    :func:`ielas_warm_dense_stage` on that frame."""
+    if dl.dim() != 4:
+        raise ValueError(f"descriptors must be (B, H, W, 16), got {tuple(dl.shape)}")
+    return ielas_warm_dense_stage(dl, dr, prev_disp, p, warm_band, band_radius)
+
+
+def ielas_descriptor_stage_batched(
+    img_left: torch.Tensor,       # (B, H, W)
+    img_right: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Descriptors only, (B, H, W, 16) for each view from one Sobel launch:
+    a warm wave's whole support stage (its prior comes from the previous
+    frame, so it runs no support search and no interpolation)."""
+    if img_left.dim() != 3:
+        raise ValueError(f"images must be (B, H, W), got {tuple(img_left.shape)}")
+    return desc_mod.extract_views(img_left, img_right)
 
 
 def ielas_disparity(

@@ -52,6 +52,22 @@ def plane_prior(support: torch.Tensor, height: int, width: int, p: ElasParams) -
     return fma_f32(across, d_br - d_mid, fma_f32(along, d_mid - d_tl, d_tl))
 
 
+def support_from_disparity(disp: torch.Tensor, p: ElasParams) -> torch.Tensor:
+    """Re-grid a dense disparity map ([...,] H, W) onto the support lattice:
+    the map sampled at the regular node coordinates (``candidate_step // 2 +
+    i * candidate_step``, the lattice :func:`plane_prior` interpolates from),
+    a ([...,] GH, GW) grid.  INVALID pixels stay INVALID; callers fill them
+    with :func:`~repro_torch.core.interpolation.interpolate_support`, as for
+    the support search's output.  This is the warm-start seam: frame t-1's
+    delivered disparity becomes frame t's prior.  A strided view, no copy."""
+    h, w = disp.shape[-2:]
+    gh, gw = p.grid_shape(h, w)
+    step = p.candidate_step
+    off = step // 2
+    return disp[..., off : off + (gh - 1) * step + 1 : step,
+                off : off + (gw - 1) * step + 1 : step]
+
+
 def right_view_support(support_left: torch.Tensor, p: ElasParams) -> torch.Tensor:
     """Re-express support points in right-image coordinates.
 

@@ -8,6 +8,10 @@
   over a per-pixel candidate tensor (the paper's C = K + 2R + 1 window); the
   kernel is ``csrc/dense_match_windowed.cu``, the plain version
   :func:`repro_torch.kernels.ref.dense_match_rows_windowed_ref`.
+* :func:`dense_match_warm` replaces the reference's XLA warm-start scan
+  (``dense_match_warm_xla``): only the band around a previous frame's
+  disparity; the kernel is ``csrc/dense_match_warm.cu``, the plain version
+  :func:`repro_torch.kernels.ref.dense_match_rows_warm_ref`.
 
 On CUDA tensors each launches its kernel once for both views of a frame,
 or of every frame of a wave (a leading batch axis); on CPU tensors it runs
@@ -24,9 +28,11 @@ import torch
 from repro_torch.kernels import _build, ref
 
 # Number of launches of each kernel since the last reset (CPU calls do not
-# count): the streaming kernel's, and the candidate-window kernel's.
+# count): the streaming kernel's, the candidate-window kernel's, and the
+# warm band kernel's.
 launches = 0
 windowed_launches = 0
+warm_launches = 0
 
 # The stream kernel stages a tile's descriptor columns and packed bitmask
 # words for up to this many disparities in shared memory, and tests the
@@ -49,6 +55,15 @@ ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3 + [
 WINDOWED_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + [
     ctypes.c_int, ctypes.c_void_p,
 ]
+# ielas_dense_match_warm(desc_l, desc_r, mu_l, mu_r, out_l, out_r, batch, h, w,
+#     num_disp, disp_min, band, beta, inv_2s2, match_texture, stream)
+WARM_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [
+    ctypes.c_int, ctypes.c_void_p,
+]
+# The warm kernel tests its band on integers, exact while the search range's
+# last disparity is below 2**24; dense_match_warm raises beyond it on every
+# device.
+WARM_MAX_DISP = 1 << 24
 # ielas_xla_exp_log(x, ex, lg, n, stream)
 EXP_LOG_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
 
@@ -61,6 +76,11 @@ def _kernel():
 @functools.cache
 def _windowed_kernel():
     return _build.bind("dense_match_windowed", "ielas_dense_match_windowed", WINDOWED_ARGTYPES)
+
+
+@functools.cache
+def _warm_kernel():
+    return _build.bind("dense_match_warm", "ielas_dense_match_warm", WARM_ARGTYPES)
 
 
 @functools.cache
@@ -218,6 +238,58 @@ def dense_match_candidates(
         raise RuntimeError(f"dense_match_windowed kernel launch failed: cudaError_t {err}")
     global windowed_launches
     windowed_launches += 1
+    return out_l, out_r
+
+
+def dense_match_warm(
+    desc_l: torch.Tensor,       # ([B,] H, W, 16) int8
+    desc_r: torch.Tensor,       # ([B,] H, W, 16) int8
+    mu_l: torch.Tensor,         # ([B,] H, W) float32 warm prior
+    mu_r: torch.Tensor,         # ([B,] H, W) float32
+    *,
+    num_disp: int,
+    disp_min: int,
+    warm_band: int,
+    beta: float,
+    sigma: float,
+    match_texture: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(disp_l, disp_r), each ([B,] H, W) float32 with INVALID = -1: the
+    least-energy candidate of each pixel's band ``round(mu) -/+ warm_band``
+    (clipped to the search range and the image), the smallest on ties."""
+    lead, h, w = _check_common(desc_l, desc_r, mu_l, mu_r, num_disp, disp_min)
+    if warm_band < 0:
+        raise ValueError(f"warm_band must be >= 0, got {warm_band}")
+    if disp_min + num_disp > WARM_MAX_DISP or warm_band >= WARM_MAX_DISP:
+        raise ValueError(f"the warm kernel takes disp_min + num_disp and warm_band below "
+                         f"{WARM_MAX_DISP}, got {disp_min} + {num_disp} and {warm_band}")
+    inputs = (desc_l, desc_r, mu_l, mu_r)
+    device = _device_of(inputs)
+    batch = lead[0] if lead else 1
+    kwargs = dict(num_disp=num_disp, disp_min=disp_min, warm_band=warm_band, beta=beta,
+                  sigma=sigma, match_texture=match_texture)
+    if device.type == "cpu":
+        n = batch * h
+        out = ref.dense_match_rows_warm_ref(
+            desc_l.reshape(n, w, 16), desc_r.reshape(n, w, 16),
+            mu_l.reshape(n, w), mu_r.reshape(n, w), **kwargs,
+        )
+        return tuple(o.reshape(*lead, h, w) for o in out)
+    out_l = torch.empty((*lead, h, w), dtype=torch.float32, device=device)
+    out_r = torch.empty_like(out_l)
+    if out_l.numel() == 0:
+        return out_l, out_r
+    fn = _warm_kernel()
+    with torch.cuda.device(device):
+        err = fn(
+            *(t.data_ptr() for t in (*inputs, out_l, out_r)),
+            batch, h, w, num_disp, disp_min, warm_band, beta, 1.0 / (2.0 * sigma * sigma),
+            match_texture, torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"dense_match_warm kernel launch failed: cudaError_t {err}")
+    global warm_launches
+    warm_launches += 1
     return out_l, out_r
 
 

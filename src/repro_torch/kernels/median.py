@@ -18,6 +18,11 @@ from repro_torch.kernels import _build, ref
 # Number of kernel launches since the last reset (CPU calls do not count).
 launches = 0
 
+# A block of the kernel takes 8 rows of a map, and the grid's y axis holds at
+# most 65535 blocks.  median3x3 raises beyond it on every device, so the CPU
+# and the card take the same inputs.
+MEDIAN_MAX_HEIGHT = 8 * 65535
+
 
 # ielas_median3x3(disp, out, n, h, w, stream)
 ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -36,6 +41,9 @@ def median3x3(disp: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"disparities must be (..., H, W), got {tuple(disp.shape)}")
     if disp.dtype != torch.float32:
         raise TypeError(f"disparities must be float32, got {disp.dtype}")
+    if disp.shape[-2] > MEDIAN_MAX_HEIGHT:
+        raise ValueError(f"the median kernel takes maps of at most {MEDIAN_MAX_HEIGHT} rows, "
+                         f"got {disp.shape[-2]}")
     device = disp.device
     if device.type == "cpu":
         return ref.median3x3_rows_ref(*ref.edge_row_views(disp))

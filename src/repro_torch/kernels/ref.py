@@ -636,6 +636,92 @@ def dense_match_rows_windowed_ref(
 
 
 # --------------------------------------------------------------------------
+# warm-start dense matching: the band-only scan around a previous disparity
+# --------------------------------------------------------------------------
+def warm_energy(sad: torch.Tensor, d, mu: torch.Tensor, *, beta: float,
+                inv_2s2: float) -> torch.Tensor:
+    """The warm energy ``beta * SAD - 1 / (1 + (d - mu)^2 * inv_2s2)`` in
+    float32, rounded as XLA:CPU rounds it: the square rounded, ``1 + square
+    * inv_2s2`` and ``beta * SAD + prior`` each one FMA, the division a true
+    one.  ``d`` is a Python number (an integer, exact in float32) or a
+    tensor; ``inv_2s2`` is rounded to float32 once, as the reference's
+    Python float is where it meets float32."""
+    diff = d - mu
+    q = fma_f32(diff * diff, inv_2s2, 1.0)
+    # A tensor numerator: ``-1.0 / q`` would be a reciprocal and a multiply.
+    prior = torch.tensor(-1.0, dtype=torch.float32, device=q.device) / q
+    return fma_f32(beta, sad.float(), prior)
+
+
+def dense_match_rows_warm_ref(
+    desc_l: torch.Tensor,       # (bh, W, 16) int8
+    desc_r: torch.Tensor,       # (bh, W, 16) int8
+    mu_l: torch.Tensor,         # (bh, W) float32 warm prior (the previous frame's seed)
+    mu_r: torch.Tensor,         # (bh, W) float32
+    *,
+    num_disp: int,
+    disp_min: int,
+    warm_band: int,
+    beta: float,
+    sigma: float,
+    match_texture: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Warm-start dense matching for both views: one loop over ``d`` in
+    ``[disp_min, disp_min + num_disp)``, as the reference's scan.
+
+    A pixel's candidates are only the band ``clip(round(mu) -/+ warm_band,
+    disp_min, disp_min + num_disp - 1)`` -- no grid-vector bitmask -- cut to
+    the image (left view ``u >= d``, right view ``u + d < W``).  There the
+    energy :func:`warm_energy` is folded into running (best energy, best d)
+    registers with a strict ``<`` from (BIGF, 0); elsewhere the energy is
+    BIGF, which never wins.  Returns (disp_l, disp_r), each (bh, W) float32
+    with INVALID where no candidate was valid or the texture is below
+    ``match_texture``.
+    """
+    bh, w, _ = desc_l.shape
+    dev = desc_l.device
+    sad_row, shift_left = _sad_rows(desc_l, desc_r)
+    u = torch.arange(w, device=dev)[None, :]
+    lo_d = float(disp_min)
+    hi_d = float(disp_min + num_disp - 1)
+    inv_2s2 = 1.0 / (2.0 * sigma * sigma)
+
+    def band(mu):
+        r = torch.round(mu)
+        return (r - warm_band).clamp(lo_d, hi_d), (r + warm_band).clamp(lo_d, hi_d)
+
+    band_l = band(mu_l)
+    band_r = band(mu_r)
+
+    def update(state, sad, valid, mu, bnd, d):
+        best_e, best_d = state
+        df = float(d)
+        mask = (bnd[0] <= df) & (bnd[1] >= df) & valid
+        e = torch.full_like(best_e, BIGF)
+        e[mask] = warm_energy(sad[mask], df, mu[mask], beta=beta, inv_2s2=inv_2s2)
+        better = e < best_e
+        return torch.where(better, e, best_e), torch.where(better, d, best_d)
+
+    def init():
+        return (torch.full((bh, w), BIGF, dtype=torch.float32, device=dev),
+                torch.zeros((bh, w), dtype=torch.int32, device=dev))
+
+    left, right = init(), init()
+    for i in range(num_disp):
+        d = disp_min + i
+        sad = sad_row(d)
+        left = update(left, sad, u >= d, mu_l, band_l, d)
+        right = update(right, shift_left(sad, d, 0), u + d < w, mu_r, band_r, d)
+
+    def finish(state, desc):
+        emin, best = state
+        valid = (emin < BIGF) & (descriptor_texture(desc) >= match_texture)
+        return torch.where(valid, best.float(), INVALID)
+
+    return finish(left, desc_l), finish(right, desc_r)
+
+
+# --------------------------------------------------------------------------
 # 3x3 stencils: Sobel and median
 # --------------------------------------------------------------------------
 def edge_row_views(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

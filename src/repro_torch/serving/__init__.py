@@ -1,5 +1,5 @@
-"""Stereo serving engine, cold path (counterpart of ``repro.serving``; the
-LM engine and the warm start are not ported yet)."""
+"""Stereo serving engine with temporal warm start (counterpart of
+``repro.serving``; the LM engine is not ported yet)."""
 from repro_torch.serving.admission import AdmissionController  # noqa: F401
 from repro_torch.serving.faults import (  # noqa: F401
     FaultInjected,
@@ -11,4 +11,10 @@ from repro_torch.serving.stereo_service import (  # noqa: F401
     FrameProgramCache,
     ServiceStats,
     StereoService,
+)
+from repro_torch.serving.warmstart import (  # noqa: F401
+    WarmState,
+    frame_thumbnail,
+    prior_disagreement,
+    scene_change_score,
 )

@@ -43,8 +43,7 @@ raising:
   warm on a poisoned seed), proving silent state corruption is caught
   by the same post-hoc check.
 
-The reference engine polls these via :meth:`FaultPlan.warm_kind`; the
-port's service has no warm start yet, so nothing in it triggers them.
+The engine polls these via :meth:`FaultPlan.warm_kind`.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Continuous-batching stereo serving engine, cold path (counterpart of
+"""Continuous-batching stereo serving engine (counterpart of
 ``repro/serving/stereo_service.py``).
 
 The FPGA design overlaps frame i's compute with frame i+1's arrival via
@@ -66,7 +66,32 @@ Failure model (as the reference's; proved by
 * every stage thread beats a
   :class:`~repro_torch.runtime.fault_tolerance.HeartbeatMonitor`.
 
-The reference's temporal warm start (``warm_start=True``) is not ported yet.
+Temporal warm start (``warm_start=True``), as the reference's (proved by
+``tests/test_torch_warm_service.py`` against the JAX service, frame by frame
+and counter by counter):
+
+* each stream's last successfully delivered frame (its disparity and a
+  block-mean thumbnail of its left image,
+  :class:`~repro_torch.serving.warmstart.WarmState`) seeds the next frame:
+  a warm frame's support stage is descriptor extraction only
+  (:func:`~repro_torch.core.pipeline.ielas_descriptor_stage_batched`) and
+  its dense stage scans only ``+-warm_band`` around the previous disparity
+  (:func:`~repro_torch.core.pipeline.ielas_warm_dense_stage_batched`, the
+  warm band kernel);
+* classification happens once, as the frame enters assembly, and pins its
+  prior: a frame is cold without state, when its seed is not its immediate
+  predecessor, on a resolution change, when the warm streak reaches
+  ``refresh_interval``, or when the thumbnail SAD against the previous frame
+  exceeds ``scene_change_threshold``; every cold reason but "no state"
+  resets the stream's state, and cold frames run the cold stages unchanged;
+* warm and cold frames never share a wave;
+* at emit, a warm frame whose result disagrees with its own seed by more
+  than ``rerun_threshold * num_disp`` (INVALID pixels counting as
+  ``num_disp``) is re-run cold on the batch-1 cold stages before delivery;
+* state is written only by a successful in-sequence delivery; an error,
+  a shed or an out-of-sequence delivery resets it.  A warm slot retries on
+  the batch-1 warm stages with its slice of the wave's pinned prior, and a
+  degraded warm wave runs band ``min(warm_band, degraded_band)``.
 """
 from __future__ import annotations
 
@@ -85,14 +110,18 @@ import torch
 from repro_torch.core.params import ElasParams
 from repro_torch.core.pipeline import (
     ielas_dense_stage_batched,
+    ielas_descriptor_stage_batched,
     ielas_interpolate_stage,
     ielas_support_stage_batched,
+    ielas_warm_dense_stage_batched,
     resolve_device,
 )
 from repro_torch.core.tiling import TileArg, TileSpec, dense_route
 from repro_torch.runtime.fault_tolerance import HeartbeatMonitor
 from repro_torch.serving.admission import AdmissionController
+from repro_torch.serving import warmstart as _warmstart
 from repro_torch.serving.faults import FaultPlan
+from repro_torch.serving.warmstart import WarmState, frame_thumbnail, prior_disagreement
 
 _EOS = object()          # end-of-stream sentinel flowing through the stages
 
@@ -160,6 +189,13 @@ class ServiceStats:
     shed_by_stream: tuple = ()     # ((stream_id, shed), ...)
     stage_liveness: tuple = ()     # ((stage, alive), ...) from the heartbeat
     stage_stragglers: tuple = ()   # stage names slower than the median
+    # ---- temporal warm start (all zero with warm_start=False) ----
+    warm_frames: int = 0           # frames classified warm (band-only scan)
+    cold_frames: int = 0           # warm-start frames classified cold
+    scene_changes: int = 0         # cold because the thumbnail SAD tripped
+    warm_refreshes: int = 0        # cold because the streak hit refresh_interval
+    warm_reruns: int = 0           # warm frames re-run cold by the post-hoc check
+    warm_resets: int = 0           # state dropped (error/shed/out-of-seq/stale)
 
 
 # ---------------------------------------------------------------------------
@@ -176,6 +212,12 @@ class WavePrograms:
     dense_degraded: object = None  # same, with the narrowed prior band
                                    # (present only when the cache was built
                                    # with degraded_radius)
+    # warm-start variants (present only when the cache was built with
+    # warm_band; a warm wave runs exactly this pair):
+    support_warm: object = None    # (B,H,W)x2 -> (dl, dr): descriptors only
+    dense_warm: object = None      # (dl, dr, prior) -> (B,H,W) disparity,
+                                   # band-only scan around the prior
+    dense_warm_degraded: object = None   # band = min(warm_band, degraded)
 
 
 class FrameProgramCache:
@@ -193,7 +235,12 @@ class FrameProgramCache:
     so the batch-1 programs the retry path uses never evict a bucket's
     calibrated one.  ``tile`` goes to the dense stage only (it picks the
     dense route); with ``degraded_radius`` set every program also carries a
-    ``dense_degraded`` variant whose plane-prior band is that radius.
+    ``dense_degraded`` variant whose plane-prior band is that radius.  With
+    ``warm_band`` set every program also carries the warm-start pair
+    (``support_warm``: descriptors only; ``dense_warm``: the band-only scan
+    seeded by a previous disparity), and with both set a
+    ``dense_warm_degraded`` whose band is ``min(warm_band,
+    degraded_radius)``.
 
     On a card each stage has its own CUDA stream (``streams``), and the
     dummy waves of :meth:`warm` and :meth:`calibrate` run each stage on its
@@ -203,7 +250,8 @@ class FrameProgramCache:
     """
 
     def __init__(self, params: ElasParams, batch: int, device=None, bucket: int = 1,
-                 tile: TileArg = None, degraded_radius: Optional[int] = None):
+                 tile: TileArg = None, degraded_radius: Optional[int] = None,
+                 warm_band: Optional[int] = None):
         if batch < 1:
             raise ValueError(f"batch must be >= 1, got {batch}")
         if bucket < 1:
@@ -212,6 +260,8 @@ class FrameProgramCache:
             raise ValueError(
                 f"degraded_radius must be >= 0 or None, got {degraded_radius}"
             )
+        if warm_band is not None and warm_band < 0:
+            raise ValueError(f"warm_band must be >= 0 or None, got {warm_band}")
         dense_route(tile)              # a bad tile fails here, not in a wave
         self.params = params
         self.batch = batch
@@ -219,6 +269,7 @@ class FrameProgramCache:
         self.tile = tile
         self.bucket = bucket
         self.degraded_radius = degraded_radius
+        self.warm_band = warm_band
         self.hits = 0
         self.misses = 0
         self.calibrations = 0
@@ -329,6 +380,16 @@ class FrameProgramCache:
             if prog.dense_degraded is not None:
                 prog.dense_degraded(*mid)
         self.synchronize("dense")
+        if prog.dense_warm is not None:
+            with self.on_stream("support"):
+                warm_mid = prog.support_warm(zeros, zeros)
+            self.synchronize("support")
+            with self.on_stream("dense"):
+                prior = torch.zeros_like(zeros)
+                prog.dense_warm(*warm_mid, prior)
+                if prog.dense_warm_degraded is not None:
+                    prog.dense_warm_degraded(*warm_mid, prior)
+            self.synchronize("dense")
 
     def _build(self, key: tuple, batch: int) -> WavePrograms:
         p, tile = self.params, self.tile
@@ -348,8 +409,24 @@ class FrameProgramCache:
                 return ielas_dense_stage_batched(dl, dr, sup, p, band_radius=radius,
                                                  tile=tile)
 
+        support_warm = dense_warm = dense_warm_degraded = None
+        if self.warm_band is not None:
+            band = self.warm_band
+            support_warm = ielas_descriptor_stage_batched
+
+            def dense_warm(dl, dr, prior):
+                return ielas_warm_dense_stage_batched(dl, dr, prior, p, warm_band=band)
+
+            if self.degraded_radius is not None:
+                dradius = self.degraded_radius
+
+                def dense_warm_degraded(dl, dr, prior):
+                    return ielas_warm_dense_stage_batched(dl, dr, prior, p, warm_band=band,
+                                                          band_radius=dradius)
+
         return WavePrograms(key=key, batch=batch, support=support_wave, dense=dense_wave,
-                            dense_degraded=dense_degraded)
+                            dense_degraded=dense_degraded, support_warm=support_warm,
+                            dense_warm=dense_warm, dense_warm_degraded=dense_warm_degraded)
 
 
 def _default_batch_candidates(batch: int) -> tuple:
@@ -376,8 +453,13 @@ class _Request:
     h: int
     w: int
     t_submit: float
-    seq: int = 0               # per-stream submission sequence (in_order)
+    seq: int = 0               # per-stream submission sequence (in_order
+                               # reordering and warm-start chain identity)
     deadline: Optional[float] = None   # absolute time.monotonic() budget
+    # warm-start classification, pinned at assembly:
+    warm: bool = False                 # ride a warm (band-only) wave
+    prior: Optional[np.ndarray] = None  # (h, w) seed disparity (warm only)
+    thumb: Optional[np.ndarray] = None  # left-frame thumbnail (warm_start only)
 
 
 @dataclasses.dataclass
@@ -388,6 +470,8 @@ class _Wave:
     right: object
     index: int = 0                 # global wave-assembly index (fault keys)
     degraded: bool = False         # run the narrowed-band dense program
+    warm: bool = False             # run the warm (band-only) programs
+    prior: object = None           # (B, H, W) prior on the device (warm waves only)
     programs: Optional[WavePrograms] = None
     mid: Optional[tuple] = None    # (dl, dr, support) between stages
     disp: object = None
@@ -430,6 +514,23 @@ class StereoService:
     clear_watermark: backlog depth that clears degraded mode (default:
                  half the degrade watermark; hysteresis).
     degraded_band: plane-prior band half-width for degraded waves.
+    warm_start:  temporal warm start for video streams (module docstring):
+                 each stream's last delivered frame seeds the next frame's
+                 dense search, guarded by the scene-change detector, the
+                 forced refresh and the post-hoc disagreement re-run.  Cold
+                 frames run the cold stages unchanged.
+    warm_band:   disparity band half-width of warm frames (``prior +-
+                 warm_band``); with degraded mode the two bands compose by
+                 ``min``.
+    scene_change_threshold: thumbnail-SAD score past which a frame counts
+                 as a scene cut and runs cold with a state reset.
+    refresh_interval: force a cold frame after this many consecutive warm
+                 frames.
+    rerun_threshold: post-hoc disagreement bound as a fraction of
+                 ``num_disp``: a warm result whose
+                 :func:`~repro_torch.serving.warmstart.prior_disagreement`
+                 with its own seed exceeds ``rerun_threshold * num_disp`` is
+                 re-run cold.
     heartbeat_timeout: stage heartbeat staleness (seconds) after which a
                  stage thread reports dead in :meth:`stats`.
     clock:       monotonic clock for the heartbeat monitor.
@@ -445,6 +546,11 @@ class StereoService:
                  degrade_watermark: Optional[int] = None,
                  clear_watermark: Optional[int] = None,
                  degraded_band: int = 1,
+                 warm_start: bool = False,
+                 warm_band: int = 8,
+                 scene_change_threshold: float = 20.0,
+                 refresh_interval: int = 30,
+                 rerun_threshold: float = 0.15,
                  heartbeat_timeout: float = 60.0,
                  clock: Callable[[], float] = time.monotonic):
         if depth < 1:
@@ -453,6 +559,16 @@ class StereoService:
             raise ValueError(
                 f"max_wave_failures must be >= 1, got {max_wave_failures}"
             )
+        if warm_start:
+            if warm_band < 0:
+                raise ValueError(f"warm_band must be >= 0, got {warm_band}")
+            if refresh_interval < 1:
+                raise ValueError(f"refresh_interval must be >= 1, got {refresh_interval}")
+            if not 0.0 < rerun_threshold <= 1.0:
+                raise ValueError(
+                    f"rerun_threshold is a fraction of the disparity range "
+                    f"in (0, 1], got {rerun_threshold}"
+                )
         self.params = params
         self.batch = batch
         self.depth = depth
@@ -461,6 +577,11 @@ class StereoService:
         self.wave_linger = wave_linger
         self.fault_plan = fault_plan
         self.max_wave_failures = max_wave_failures
+        self.warm_start = warm_start
+        self.warm_band = warm_band
+        self.scene_change_threshold = float(scene_change_threshold)
+        self.refresh_interval = refresh_interval
+        self.rerun_threshold = float(rerun_threshold)
         self.heartbeat_timeout = heartbeat_timeout
         self._clock = clock
         self._admission = AdmissionController(
@@ -471,6 +592,7 @@ class StereoService:
             params, batch, device, bucket=bucket, tile=tile,
             degraded_radius=(degraded_band
                              if degrade_watermark is not None else None),
+            warm_band=(warm_band if warm_start else None),
         )
         self.device = self._cache.device
         self.tile = tile
@@ -493,6 +615,18 @@ class StereoService:
             hosts=list(_STAGES), timeout=heartbeat_timeout, clock=clock
         )
         self._stage_steps: dict = {s: 0 for s in _STAGES}
+
+        # Warm-start lock: guards the per-stream WarmState map and the warm
+        # counters (assembly classifies, emit counts re-runs, delivery moves
+        # the state).  A leaf lock: nothing takes _slock or _olock under it.
+        self._wlock = threading.Lock()
+        self._warm_state: dict = {}    # stream_id -> WarmState
+        self._warm_frames = 0
+        self._cold_frames = 0
+        self._scene_changes = 0
+        self._warm_refreshes = 0
+        self._warm_reruns = 0
+        self._warm_resets = 0
 
         self._slock = threading.Lock()
         # Ordering lock: guards the in_order reordering state, touched by
@@ -692,9 +826,11 @@ class StereoService:
         with self._slock:
             rid = self._next_request_id
             self._next_request_id += 1
-            # Sequence numbers exist for the in_order reordering buffer only.
+            # Sequence numbers exist for the in_order reordering buffer and
+            # for the warm chain's identity (a frame's seed must be its
+            # immediate predecessor).
             seq = 0
-            if self.in_order:
+            if self.in_order or self.warm_start:
                 seq = self._stream_seq[stream_id]
                 self._stream_seq[stream_id] = seq + 1
             if self._t_first_submit is None:
@@ -793,6 +929,9 @@ class StereoService:
 
     def stats(self) -> ServiceStats:
         adm = self._admission.counters()
+        with self._wlock:
+            warm = (self._warm_frames, self._cold_frames, self._scene_changes,
+                    self._warm_refreshes, self._warm_reruns, self._warm_resets)
         dead = set(self._monitor.dead_hosts()) if self._threads else set()
         liveness = tuple(
             (s, s not in dead) for s in _STAGES
@@ -844,6 +983,12 @@ class StereoService:
                 shed_by_stream=adm["shed_by_stream"],
                 stage_liveness=liveness,
                 stage_stragglers=stragglers,
+                warm_frames=warm[0],
+                cold_frames=warm[1],
+                scene_changes=warm[2],
+                warm_refreshes=warm[3],
+                warm_reruns=warm[4],
+                warm_resets=warm[5],
             )
 
     # ------------------------------------------------------- stage plumbing
@@ -880,7 +1025,9 @@ class StereoService:
             self._beat("assemble")
             draining = self._drain.is_set()
             try:
-                pending.append(self._ingest.get(timeout=0.02))
+                req = self._ingest.get(timeout=0.02)
+                self._classify_warm(req)
+                pending.append(req)
             except queue.Empty:
                 if draining and not pending:
                     self._put(self._waves, _EOS, "assemble")
@@ -903,18 +1050,23 @@ class StereoService:
                     continue
 
             # Fill the head-of-line wave: linger briefly for same-bucket
-            # requests, then dispatch padded rather than stall.
+            # requests, then dispatch padded rather than stall.  Warm and
+            # cold frames never share a wave, so the classification joins
+            # the grouping key.
             key = self._cache.bucket_shape(pending[0].h, pending[0].w)
+            warm = pending[0].warm
             width = self._cache.batch_for(*key)
             deadline = time.monotonic() + self.wave_linger
             while (not draining
-                   and sum(self._cache.bucket_shape(r.h, r.w) == key
+                   and sum(self._cache.bucket_shape(r.h, r.w) == key and r.warm == warm
                            for r in pending) < width):
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
                     break
                 try:
-                    pending.append(self._ingest.get(timeout=remaining))
+                    req = self._ingest.get(timeout=remaining)
+                    self._classify_warm(req)
+                    pending.append(req)
                 except queue.Empty:
                     break
 
@@ -922,7 +1074,7 @@ class StereoService:
             # over the head bucket's candidates.
             candidates = [
                 r for r in pending
-                if self._cache.bucket_shape(r.h, r.w) == key
+                if self._cache.bucket_shape(r.h, r.w) == key and r.warm == warm
             ]
             admitted, dead = self._admission.select(
                 candidates, width, time.monotonic()
@@ -938,10 +1090,64 @@ class StereoService:
                 continue
             backlog = self._ingest.qsize() + len(pending) + len(admitted)
             degraded = self._admission.update_pressure(backlog)
-            wave = self._build_wave(key, admitted, width, degraded)
+            wave = self._build_wave(key, admitted, width, degraded, warm)
             if not self._put(self._waves, wave, "assemble"):
                 return
             self._step("assemble")
+
+    def _classify_warm(self, req: _Request) -> None:
+        """The warm/cold decision for one frame, pinned as it enters
+        assembly: stamps ``req.warm`` / ``req.prior`` / ``req.thumb`` and
+        advances the warm counters.  A no-op with ``warm_start=False``."""
+        if not self.warm_start:
+            return
+        if req.deadline is not None and req.deadline < time.monotonic():
+            # Admission sheds it this same pass: a doomed frame touches no
+            # state and no streak (its shed delivery still resets the state).
+            return
+        fault = (self.fault_plan.warm_kind(req.request_id)
+                 if self.fault_plan is not None else None)
+        req.thumb = frame_thumbnail(req.left)
+        with self._wlock:
+            state = self._warm_state.get(req.stream_id)
+            if fault == "stale_state" and state is not None:
+                # Poison the stored seed: the thumbnail still matches, so the
+                # frame classifies warm on a corrupt prior, which only the
+                # post-hoc check can catch.
+                state.disparity = _warmstart.corrupt_disparity(
+                    state.disparity, self.params.disp_max
+                )
+            if fault == "scene_cut":
+                warm, reason = False, "scene_change"
+            else:
+                warm, reason = _warmstart.classify(
+                    state, req.thumb, (req.h, req.w), req.seq,
+                    threshold=self.scene_change_threshold,
+                    refresh_interval=self.refresh_interval,
+                )
+            if warm:
+                req.warm = True
+                # Pinned now: a later state reset cannot change an assembled
+                # wave.
+                req.prior = state.disparity.copy()
+                if fault == "corrupt_prior":
+                    req.prior = _warmstart.corrupt_disparity(
+                        req.prior, self.params.disp_max
+                    )
+                state.streak += 1
+                self._warm_frames += 1
+            else:
+                self._cold_frames += 1
+                if reason == "scene_change":
+                    self._scene_changes += 1
+                elif reason == "refresh":
+                    self._warm_refreshes += 1
+                elif reason in ("stale_seq", "resolution"):
+                    self._warm_resets += 1
+                # Every cold reason but "no state" resets the chain, so this
+                # frame's own delivery re-seeds it.
+                if state is not None:
+                    self._warm_state.pop(req.stream_id, None)
 
     def _shed_request(self, req: _Request) -> None:
         self._finish(req, None, error=(
@@ -950,7 +1156,7 @@ class StereoService:
         ), shed=True)
 
     def _build_wave(self, key: tuple, reqs: list, width: int,
-                    degraded: bool = False) -> _Wave:
+                    degraded: bool = False, warm: bool = False) -> _Wave:
         bh, bw = key
         pad = width - len(reqs)
 
@@ -965,8 +1171,17 @@ class StereoService:
         if pad:                     # replicate a real frame into padded slots
             lefts += [lefts[0]] * pad
             rights += [rights[0]] * pad
-        for r in reqs:              # emit only needs ids/shape/timing: release
-            r.left = r.right = None  # host frames while waves are queued
+        prior = None
+        if warm:
+            # The pinned priors, padded like the frames.  Warm requests keep
+            # their host frames and priors: emit needs them for the post-hoc
+            # check and its cold re-run.
+            priors = [fit(r.prior) for r in reqs]
+            priors += [priors[0]] * pad
+            prior = torch.from_numpy(np.stack(priors)).to(self.device)
+        else:
+            for r in reqs:          # emit only needs ids/shape/timing: release
+                r.left = r.right = None  # host frames while waves are queued
         with self._slock:
             index = self._waves_built
             self._waves_built += 1
@@ -975,7 +1190,7 @@ class StereoService:
             if degraded:
                 self._degraded_waves += 1
         return _Wave(
-            key=key, requests=reqs, index=index, degraded=degraded,
+            key=key, requests=reqs, index=index, degraded=degraded, warm=warm, prior=prior,
             left=torch.from_numpy(np.stack(lefts)).to(self.device),
             right=torch.from_numpy(np.stack(rights)).to(self.device),
         )
@@ -988,7 +1203,13 @@ class StereoService:
                 tuple(r.request_id for r in wave.requests),
             )
 
-    def _dense_of(self, prog: WavePrograms, degraded: bool):
+    def _support_of(self, prog: WavePrograms, warm: bool):
+        return prog.support_warm if warm else prog.support
+
+    def _dense_of(self, prog: WavePrograms, degraded: bool, warm: bool = False):
+        if warm:
+            return (prog.dense_warm_degraded
+                    if degraded and prog.dense_warm_degraded is not None else prog.dense_warm)
         return (prog.dense_degraded
                 if degraded and prog.dense_degraded is not None else prog.dense)
 
@@ -1001,33 +1222,40 @@ class StereoService:
                 wave.programs = self._cache.get(
                     *wave.key, batch=int(wave.left.shape[0])
                 )
-                wave.mid = wave.programs.support(wave.left, wave.right)
+                wave.mid = self._support_of(wave.programs, wave.warm)(wave.left, wave.right)
             else:
-                wave.disp = self._dense_of(wave.programs, wave.degraded)(*wave.mid)
+                dense = self._dense_of(wave.programs, wave.degraded, wave.warm)
+                extra = (wave.prior,) if wave.warm else ()
+                wave.disp = dense(*wave.mid, *extra)
         self._cache.synchronize(stage)
         if stage == "support":
             wave.left = wave.right = None
         else:
-            wave.mid = None
+            wave.mid = wave.prior = None
 
     def _retry_slot(self, wave: _Wave, stage: str, slot: int) -> _Wave:
         """The bounded retry: re-run ONE slot of a failed wave as a
-        single-frame wave (batch-1 program)."""
+        single-frame wave (batch-1 program).  A warm slot retries on the
+        batch-1 warm programs with its slice of the wave's pinned prior."""
         req = wave.requests[slot]
         with self._slock:
             self._retried += 1
         prog = self._cache.get(*wave.key, batch=1)
         sub = _Wave(key=wave.key, requests=[req], left=None, right=None,
-                    index=wave.index, degraded=wave.degraded, programs=prog)
+                    index=wave.index, degraded=wave.degraded, warm=wave.warm,
+                    programs=prog)
         if self.fault_plan is not None:
             self.fault_plan.check(stage, wave.index, (req.request_id,))
         with self._launch_lock, self._cache.on_stream(stage):
             if stage == "support":
-                sub.mid = prog.support(wave.left[slot:slot + 1],
-                                       wave.right[slot:slot + 1])
+                sub.mid = self._support_of(prog, wave.warm)(wave.left[slot:slot + 1],
+                                                            wave.right[slot:slot + 1])
+                if wave.warm:
+                    sub.prior = wave.prior[slot:slot + 1]
             else:
                 mid = tuple(m[slot:slot + 1] for m in wave.mid)
-                sub.disp = self._dense_of(prog, wave.degraded)(*mid)
+                extra = (wave.prior[slot:slot + 1],) if wave.warm else ()
+                sub.disp = self._dense_of(prog, wave.degraded, wave.warm)(*mid, *extra)
         self._cache.synchronize(stage)
         return sub
 
@@ -1129,9 +1357,50 @@ class StereoService:
             with self._slock:
                 self._consec_wave_failures = 0
             for slot, req in enumerate(wave.requests):
-                self._finish(req, np.array(disp[slot, : req.h, : req.w]))
+                out = np.array(disp[slot, : req.h, : req.w])
+                error = None
+                if wave.warm:
+                    out, error = self._posthoc_check(req, out, wave.key)
+                    req.left = req.right = req.prior = None
+                self._finish(req, out, error=error)
             wave.disp = None
             self._step("emit")
+
+    def _posthoc_check(self, req: _Request, out: np.ndarray, key: tuple) -> tuple:
+        """The warm self-check at emit: the result scored against the prior
+        that seeded it; past ``rerun_threshold * num_disp`` the frame is
+        re-run cold on the batch-1 cold stages.  Returns ``(out, error)``."""
+        score = prior_disagreement(out, req.prior, self.params.num_disp)
+        limit = self.rerun_threshold * self.params.num_disp
+        if score <= limit:
+            return out, None
+        with self._wlock:
+            self._warm_reruns += 1
+        try:
+            return self._run_cold_single(req, key), None
+        except Exception as e:             # noqa: BLE001 -- contained: the
+            # re-run failing fails only this frame, like any compute fault
+            return None, (
+                f"warm post-hoc cold re-run failed: {e!r} "
+                f"(disagreement {score:.1f} levels, limit {limit:.1f})"
+            )
+
+    def _run_cold_single(self, req: _Request, key: tuple) -> np.ndarray:
+        """One frame through the batch-1 cold stages, from its host frames
+        (warm requests keep them until emit for this), each stage on its own
+        stream under the launch lock, as the stage threads run them."""
+        bh, bw = key
+        pad = ((0, bh - req.h), (0, bw - req.w))
+        prog = self._cache.get(*key, batch=1)
+        left, right = (torch.from_numpy(np.pad(img, pad, mode="edge")[None]).to(self.device)
+                       for img in (req.left, req.right))
+        with self._launch_lock, self._cache.on_stream("support"):
+            mid = prog.support(left, right)
+        self._cache.synchronize("support")
+        with self._launch_lock, self._cache.on_stream("dense"):
+            disp = prog.dense(*mid)
+        self._cache.synchronize("dense")
+        return np.array(disp[0, : req.h, : req.w].cpu().numpy())
 
     # ------------------------------------------------------------ delivery
     def _finish(self, req: _Request, out: Optional[np.ndarray],
@@ -1167,6 +1436,26 @@ class StereoService:
                  error: Optional[str] = None, shed: bool = False) -> None:
         now = time.monotonic()
         lat = now - req.t_submit
+        if self.warm_start:
+            # Delivery is the only writer of a stream's state: a frame seeds
+            # its successor only once it was delivered intact and in sequence.
+            with self._wlock:
+                state = self._warm_state.get(req.stream_id)
+                if error is not None:
+                    # A quarantined or shed frame: the state is suspect.
+                    if state is not None:
+                        self._warm_state.pop(req.stream_id, None)
+                        self._warm_resets += 1
+                elif state is None or req.seq == state.seq + 1:
+                    self._warm_state[req.stream_id] = WarmState.from_delivery(
+                        out, req.thumb, req.seq,
+                        streak=state.streak if state is not None else 0,
+                    )
+                else:
+                    # Out of sequence: the chain is broken; reset rather than
+                    # store a gapped seed.
+                    self._warm_state.pop(req.stream_id, None)
+                    self._warm_resets += 1
         with self._slock:
             self._inflight.pop(req.request_id, None)
             if error is None:

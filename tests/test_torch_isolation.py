@@ -35,8 +35,8 @@ def _imported_roots(path: Path) -> set[str]:
 
 def test_port_files_found():
     assert len(PORT_FILES) > 10
-    for name in ("support_match", "dense_match_stream", "dense_match_windowed", "sobel",
-                 "median", "flash_attention"):
+    for name in ("support_match", "dense_match_stream", "dense_match_windowed",
+                 "dense_match_warm", "sobel", "median", "flash_attention"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / f"{name}.cu").exists()
 
 
@@ -54,7 +54,8 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.kernels.median, repro_torch.kernels.flash_attention, "
         "repro_torch.core.tiling, repro_torch.configs.elas_stereo, repro_torch.data.stereo, "
         "repro_torch.runtime.fault_tolerance, repro_torch.serving, "
-        "repro_torch.serving.stereo_service, repro_torch.launch.serve\n"
+        "repro_torch.serving.stereo_service, repro_torch.serving.warmstart, "
+        "repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

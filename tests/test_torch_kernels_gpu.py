@@ -24,11 +24,14 @@ from torch_kernel_cases import (
     SOBEL_CASES,
     SUPPORT_CASES,
     SUPPORT_WIDE_CASES,
+    WARM_CASES,
     WINDOWED_CASES,
     dense_inputs,
     median_map,
+    median_stack,
     sobel_image,
     support_inputs,
+    warm_inputs,
     windowed_inputs,
 )
 
@@ -41,6 +44,7 @@ _C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_flo
     ("dense_match_stream", "ielas_dense_match_stream", dense_kernel.ARGTYPES),
     ("dense_match_stream", "ielas_xla_exp_log", dense_kernel.EXP_LOG_ARGTYPES),
     ("dense_match_windowed", "ielas_dense_match_windowed", dense_kernel.WINDOWED_ARGTYPES),
+    ("dense_match_warm", "ielas_dense_match_warm", dense_kernel.WARM_ARGTYPES),
     ("sobel", "ielas_sobel", sobel_kernel.ARGTYPES),
     ("median", "ielas_median3x3", median_kernel.ARGTYPES),
     ("flash_attention", "ielas_flash_attention", flash_kernel.ARGTYPES),
@@ -204,6 +208,56 @@ def test_median_kernel_matches_plain_on_card(case, cuda_device):
     torch.cuda.synchronize()
     assert median_kernel.launches == before + 1
     assert torch.equal(got, ref.median3x3_rows_ref(*ref.edge_row_views(disp)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", range(4))
+@pytest.mark.parametrize("case", MEDIAN_CASES, ids=[c[0] for c in MEDIAN_CASES])
+def test_median_kernel_takes_stacks_at_any_offset_on_card(case, offset, cuda_device):
+    """Two maps in one launch, read from a stack that starts `offset` floats
+    past a 16-byte boundary (a wave's slices lie so)."""
+    stack = torch.as_tensor(median_stack(case))
+    raw = torch.full((stack.numel() + offset + 4,), 7.25, device=cuda_device)
+    view = raw[offset:offset + stack.numel()].view(stack.shape)
+    view.copy_(stack)
+    before = median_kernel.launches
+    got = median_kernel.median3x3(view)
+    torch.cuda.synchronize()
+    assert median_kernel.launches == before + 1
+    assert torch.equal(got, ref.median3x3_rows_ref(*ref.edge_row_views(view)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WARM_CASES, ids=[c[0] for c in WARM_CASES])
+def test_warm_kernel_matches_plain_on_card(case, cuda_device):
+    dl, dr, mu, kw = warm_inputs(case)
+    args = [torch.as_tensor(a, device=cuda_device) for a in (dl, dr, mu[0], mu[1])]
+    before = dense_kernel.warm_launches
+    got = dense_kernel.dense_match_warm(*args, **kw)
+    torch.cuda.synchronize()
+    assert dense_kernel.warm_launches == before + 1
+    want = ref.dense_match_rows_warm_ref(*args, **kw)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    for sigma in (1.5, 0.7):
+        got = dense_kernel.dense_match_warm(*args, **{**kw, "sigma": sigma})
+        want = ref.dense_match_rows_warm_ref(*args, **{**kw, "sigma": sigma})
+        assert all(torch.equal(g, x) for g, x in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_warm_kernel_batch_matches_per_frame_launches_on_card(cuda_device):
+    frames = [warm_inputs(WARM_CASES[i]) for i in (0, 0, 0)]
+    kw = frames[0][3]
+    stacked = [torch.stack([torch.as_tensor(f[0]) for f in frames]),
+               torch.stack([torch.as_tensor(f[1]) for f in frames]),
+               torch.stack([torch.as_tensor(f[2][0] + i) for i, f in enumerate(frames)]),
+               torch.stack([torch.as_tensor(f[2][1] - i) for i, f in enumerate(frames)])]
+    args = [t.to(cuda_device) for t in stacked]
+    got = dense_kernel.dense_match_warm(*args, **kw)
+    for i in range(len(frames)):
+        one = dense_kernel.dense_match_warm(*(a[i] for a in args), **kw)
+        assert all(torch.equal(g[i], o) for g, o in zip(got, one))
 
 
 @pytest.mark.gpu

@@ -1,6 +1,6 @@
 """Fault containment, admission control and liveness of the port's
 StereoService on the CPU: the cold cases of tests/test_serving_faults.py
-(its warm-start cases wait for the port's warm start).  Frames that
+(its warm-start cases are in tests/test_torch_warm_faults.py).  Frames that
 recover are held against the JAX ``ielas_disparity`` of their pair bit for
 bit.  Also: an emit-stage fault fails only its wave, and the copied
 harness, admission controller and heartbeat monitor behave as the

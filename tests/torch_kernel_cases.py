@@ -196,22 +196,89 @@ def sobel_image(case):
     return rng.integers(low, 256, (h, w)).astype(dtype)
 
 
-# Median maps: (id, height, width, invalid share, seed).  Integral disparities
-# (many equal values), invalid pixels, and a fully invalid row.
+# Median maps: (id, height, width, invalid share, invalid middle row, seed).
+# Integral disparities (many equal values), some halves, invalid pixels,
+# and a fully invalid middle row.  The kernel takes 4 columns a thread and
+# 128 a warp, 2 rows a thread and 8 a block: maps of 1 row or 1 column (every
+# edge clamp), widths that end inside a thread's 4 columns and one or two
+# past a warp, heights that end inside a block, maps with no invalid pixel
+# (every window on the kernel's arithmetic without a -1) and with only
+# invalid ones.
 MEDIAN_CASES = [
-    ("9x9-p20", 9, 9, 0.2, 0),
-    ("16x31-p20", 16, 31, 0.2, 1),
-    ("7x50-p50", 7, 50, 0.5, 2),
-    ("2x3-p0", 2, 3, 0.0, 3),
+    ("9x9-p20", 9, 9, 0.2, True, 0),
+    ("16x31-p20", 16, 31, 0.2, True, 1),
+    ("7x50-p50", 7, 50, 0.5, True, 2),
+    ("2x3-p0", 2, 3, 0.0, True, 3),
+    ("1x1-p0", 1, 1, 0.0, False, 4),
+    ("1x1-invalid", 1, 1, 1.0, False, 5),
+    ("1x37-p30", 1, 37, 0.3, False, 6),
+    ("23x1-p30", 23, 1, 0.3, False, 7),
+    ("5x130-no-invalid", 5, 130, 0.0, False, 8),
+    ("9x133-all-invalid", 9, 133, 1.0, False, 9),
+    ("13x257-p25", 13, 257, 0.25, True, 10),
+    ("3x6-p40", 3, 6, 0.4, False, 11),
 ]
 
 
 def median_map(case):
-    _, h, w, share, seed = case
+    _, h, w, share, middle_row, seed = case
     rng = np.random.default_rng(seed)
     disp = rng.integers(0, 64, (h, w)).astype(np.float32)
     disp[rng.random((h, w)) < 0.5] += 0.5
     disp[rng.random((h, w)) < share] = -1.0
-    if h > 2:
+    if middle_row and h > 2:
         disp[h // 2] = -1.0
     return disp
+
+
+def median_stack(case):
+    """Two maps of a case (the second flipped), a stack as a wave gives the
+    kernel."""
+    disp = median_map(case)
+    return np.stack([disp, disp[::-1, ::-1].copy()])
+
+
+# Warm band cases: (id, rows, width, num_disp, disp_min, warm_band, mu kind,
+# desc kind, texture, seed).  Bands at either end of the search range and
+# beyond it, of width 0 and wider than the range, cut by the image on both
+# views, ties on the prior energy (half-integer and integer priors with
+# constant descriptors), the texture gate, a NaN prior (an empty band), and a
+# width one past the kernel's 128-pixel tile.
+WARM_CASES = [
+    ("random-w37-d16-b3", 3, 37, 16, 0, 3, "spread", "random", 1, 0),
+    ("dmin4-w29-d12-b2", 2, 29, 12, 4, 2, "spread", "random", 1, 1),
+    ("band0-w31-d16", 2, 31, 16, 0, 0, "spread", "random", 1, 2),
+    ("low-end-w23-d10-b4", 2, 23, 10, 3, 4, "low", "random", 1, 3),
+    ("high-end-w41-d24-b4", 2, 41, 24, 2, 4, "high", "random", 1, 4),
+    ("far-prior-w23-d10-b3", 2, 23, 10, 3, 3, "far", "random", 1, 5),
+    ("band-past-range-w41-d24-b30", 2, 41, 24, 0, 30, "spread", "random", 1, 6),
+    ("tie-half-prior-w19-d12-b4", 2, 19, 12, 0, 4, "half", "zero", 0, 7),
+    ("tie-integer-prior-w43-d24-b3", 2, 43, 24, 0, 3, "integer", "zero", 0, 8),
+    ("texture-gate-w17-d8-b2", 1, 17, 8, 0, 2, "spread", "ternary", 40, 9),
+    ("all-off-image-w9-d20-b3", 2, 9, 20, 6, 3, "spread", "random", 1, 10),
+    ("nan-prior-w21-d16-b4", 2, 21, 16, 0, 4, "nan", "random", 1, 11),
+    ("tile-plus-one-w129-d40-b8", 2, 129, 40, 0, 8, "spread", "random", 1, 12),
+]
+
+
+def warm_inputs(case):
+    _, h, w, nd, dmin, band, mu_kind, dkind, tex, seed = case
+    rng = np.random.default_rng(seed)
+    dl = _desc(rng, (h, w, 16), dkind)
+    dr = _desc(rng, (h, w, 16), dkind)
+    lo, hi = dmin, dmin + nd - 1
+    if mu_kind in ("spread", "nan"):
+        mu = rng.uniform(lo - 3, hi + 3, (2, h, w))
+        if mu_kind == "nan":
+            mu[rng.random((2, h, w)) < 0.3] = np.nan
+    elif mu_kind == "low":
+        mu = rng.uniform(lo - band - 2, lo + 2, (2, h, w))
+    elif mu_kind == "high":
+        mu = rng.uniform(hi - 2, hi + band + 2, (2, h, w))
+    elif mu_kind == "far":
+        mu = np.stack([np.full((h, w), lo - 40.0), np.full((h, w), hi + 40.0)])
+    else:
+        mu = _tie_prior(rng, mu_kind, lo, hi, (2, h, w))
+    kw = dict(num_disp=nd, disp_min=dmin, warm_band=band, beta=0.02, sigma=1.0,
+              match_texture=tex)
+    return dl, dr, mu.astype(np.float32), kw

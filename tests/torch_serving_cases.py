@@ -45,3 +45,47 @@ def assert_bitwise(done, pairs, bucket=1):
         assert c.disparity.shape == want.shape and c.disparity.dtype == np.float32
         diff = int(np.sum(c.disparity != want))
         assert diff == 0, f"frame {c.frame_id} of stream {c.stream_id}: {diff} pixels differ"
+
+
+WARM_COUNTERS = ("warm_frames", "cold_frames", "scene_changes", "warm_refreshes",
+                 "warm_reruns", "warm_resets", "retried", "failed_frames", "shed")
+
+
+def drive(svc, frames, stream_id=0, deadlines=None):
+    """Live-camera pacing: frame t+1 is submitted only after frame t was
+    delivered (the warm chain needs each seed delivered before its
+    successor is classified).  ``deadlines`` maps a frame index to a
+    ``deadline`` for submit."""
+    outs = []
+    for t, (left, right, *_) in enumerate(frames):
+        svc.submit(t, left, right, stream_id=stream_id,
+                   deadline=(deadlines or {}).get(t))
+        got = svc.collect(1, timeout=300)
+        assert len(got) == 1, f"frame {t} never delivered"
+        outs.extend(got)
+    return outs
+
+
+def reference_warm_run(frames, fault_specs=(), **kw):
+    """The JAX StereoService's deliveries and warm counters for ``frames``
+    driven one at a time, with a FaultPlan of ``fault_specs`` (a list of
+    FaultSpec keyword dicts) and the service keywords ``kw``."""
+    from repro.serving import FaultPlan, FaultSpec, StereoService
+
+    plan = FaultPlan([FaultSpec(**s) for s in fault_specs]) if fault_specs else None
+    with StereoService(REF_SYNTH.params, fault_plan=plan, **kw) as svc:
+        outs = drive(svc, frames)
+        st = svc.stats()
+    return outs, {k: getattr(st, k) for k in WARM_COUNTERS}
+
+
+def port_warm_run(frames, fault_specs=(), **kw):
+    """The same run through the port's StereoService on the CPU."""
+    from repro_torch.configs.elas_stereo import SYNTH
+    from repro_torch.serving import FaultPlan, FaultSpec, StereoService
+
+    plan = FaultPlan([FaultSpec(**s) for s in fault_specs]) if fault_specs else None
+    with StereoService(SYNTH.params, fault_plan=plan, device="cpu", **kw) as svc:
+        outs = drive(svc, frames)
+        st = svc.stats()
+    return outs, {k: getattr(st, k) for k in WARM_COUNTERS}
