@@ -12,15 +12,17 @@ Phases (any failure exits nonzero):
     elas-tsukuba, and disp_min=4 dense cases), with 0 mismatches allowed
     (flash attention: within the tolerance stated at FLASH_TOL):
     the kernels' float32 exp/log (exhaustive over the log's input range),
+    the warm kernel's reciprocal (exhaustive over [1, 2^126)),
     support search, streaming and candidate-window dense matching, Sobel,
     median; on a wave of four different pairs the support, streaming and
     candidate-window kernels against the plain version on the same stacked
     inputs and slot by slot against a per-frame launch, Sobel on both views
     of the wave and the median on the wave's maps; the warm band kernel on a
     frame of a pan seeded by the card's cold output of the frame before
-    (band 8, timed; bands 0 and 2; bands pushed to either end of the range;
-    an all-invalid prior; a stack of four frames against the plain version
-    and against per-frame launches); the support kernel at
+    (band 8, timed, with the share of right-view candidates whose SAD a
+    left-view candidate also needs; bands 0 and 2; bands pushed to either
+    end of the range; an all-invalid prior; a stack of four frames against
+    the plain version and against per-frame launches); the support kernel at
     every split of a row into spans (1, 2, 4, 8 blocks a row) and on the
     candidate rows' strided views; both dense kernels, the support kernel
     (at every split), the Sobel kernel (uint8, int32 and float32 stacks at
@@ -71,7 +73,16 @@ Phases (any failure exits nonzero):
     each kernel as the warm, cold and re-run frames dictate; the warm and
     cold frames' latency, and the warm and cold dense stage's time (CUDA
     events) on the same frame;
-10. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
+10. hybrid baseline: ``elas_baseline_disparity`` (host-side Delaunay
+    priors) for elas-kitti and elas-tsukuba on phase 4's pairs, one warm-up
+    frame and three timed frames each, with the support, stream, Sobel and
+    median launch counts rising by one per frame; the support stage (CUDA
+    events), the host part (the grids' copies, two ``delaunay_prior`` calls,
+    the priors' copies back; host clock) and the dense half (CUDA events);
+    frames per second and the bad-pixel rate beside phase 4's
+    ``ielas_disparity``; the output against the port's CPU output of the
+    same frame (0 mismatches);
+11. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
 
 Every time is printed with the card's name and power limit.  Each profiled
 frame or wave also leaves its device-side rows, by time, in
@@ -122,8 +133,11 @@ OPS_SLOT = 4
 OPS_SOBEL = 30
 OPS_MEDIAN = 56
 # A warm candidate's energy: subtract, square, FMA, divide, negate, convert,
-# FMA, and the compare-and-keep (8).  The warm bound counts each in-image
-# band candidate of a pixel and view once (a SAD and an energy).
+# FMA, and the compare-and-keep (8).  The warm bound counts each distinct
+# (left column, d) SAD once over the union of both views' bands (right pixel
+# u at d and left pixel u + d at d need the same SAD) and each in-image band
+# candidate's energy; printed beside it, the bound that counts a SAD for
+# every candidate.
 OPS_WARM_ENERGY = 8
 
 GOLDEN_SHA256 = "91e3ce9df8a9d01f9b9905bd2aabe4f0791dd06329e1c6f015557054988c018b"
@@ -156,6 +170,7 @@ SERVICE_FRAMES = 8        # frames per stream (seeds 0-15)
 WARM_BAND = 8             # the service's default warm band
 VIDEO_FRAMES = 5          # frames of the warm video phase
 VIDEO_CUT = 3             # its scene cut
+BASELINE_FRAMES = 4       # the hybrid baseline: one warm-up frame and three timed
 
 
 def main() -> int:
@@ -337,6 +352,21 @@ def main() -> int:
           f"mismatches {m_log} of {y.numel()} (every float32 in [3, 4)) {card}")
     if m_exp or m_log:
         raise AssertionError("the card's exp/log differ from the plain helpers")
+    # The warm kernel's fast reciprocal (rcp.approx and a Newton step), which
+    # it uses only where every candidate's q lies in [1, 2^126): against a
+    # division on every float32 there, in chunks of 2^26.
+    m_rcp, first, last = 0, 0x3F800000, 0x7E800000
+    for lo in range(first, last, 1 << 26):
+        q = torch.arange(lo, min(lo + (1 << 26), last), dtype=torch.int32,
+                         device=dev).view(torch.float32)
+        want = torch.div(torch.ones_like(q), q)
+        m_rcp += int((dense_kernel.warm_reciprocal(q).view(torch.int32)
+                      != want.view(torch.int32)).sum())
+    del q, want
+    print(f"warm reciprocal: mismatches {m_rcp} of {last - first} against a division (every "
+          f"float32 in [1, 2^126)) {card}")
+    if m_rcp:
+        raise AssertionError("the warm kernel's reciprocal differs from a division")
 
     def support_maps(cfg, d_max, seed=0):
         """Both views' descriptor maps of one pair, ([B,] H, W, 16)."""
@@ -736,20 +766,6 @@ def main() -> int:
                                             mu_l.reshape(-1, w), mu_r.reshape(-1, w), **kw)
         return tuple(o.reshape(mu_l.shape) for o in out)
 
-    def warm_candidates(mu_l, mu_r, p, band) -> int:
-        """In-image band candidates of every (pixel, view): the work this
-        data needs (the kernel evaluates exactly these)."""
-        w = mu_l.shape[-1]
-        u = torch.arange(w, device=dev, dtype=torch.float32)
-        lo_d, hi_d = float(p.disp_min), float(p.disp_min + p.num_disp - 1)
-        total = 0
-        for mu, lim in ((mu_l, u), (mu_r, w - 1 - u)):
-            r = torch.round(mu)
-            lo = (r - band).clamp(lo_d, hi_d)
-            hi = torch.minimum((r + band).clamp(lo_d, hi_d), lim)
-            total += int(torch.nan_to_num(hi - lo + 1, nan=0.0).clamp(min=0).to(torch.int64).sum())
-        return total
-
     def warm_inputs(cfg, d_max, prev=None):
         """The warm kernel's inputs for frames 1-4 of a pan, each seeded by the
         card's cold output of the frame before (or by ``prev``): descriptors
@@ -772,18 +788,25 @@ def main() -> int:
         torch.cuda.synchronize()
         mism, err = mismatches(got, want)
         n = args[2].numel()
+        # Right pixel u at d and left pixel u + d at d need the same SAD:
+        # `shared` of the `right` right-view candidates are left-view ones too.
+        left, right, shared = ref.warm_band_counts(args[2], args[3], num_disp=p.num_disp,
+                                                   disp_min=p.disp_min, warm_band=band)
         line = (f"kernel dense_match_warm {label} {tuple(args[2].shape)} D={p.num_disp} band "
-                f"{band}: mismatches {mism} of {2 * n}, max_abs_err {err}")
+                f"{band}: mismatches {mism} of {2 * n}, max_abs_err {err}; {shared} of {right} "
+                f"right-view candidates ({shared / max(right, 1):.4f}) share the left view's SAD")
         if time_it:
-            cands = warm_candidates(args[2], args[3], p, band)
+            cands = left + right
             nbytes = nbytes_of(*args) + 2 * 4 * n
-            b_ms, b_by = bound(nbytes, cands * (OPS_SAD + OPS_WARM_ENERGY))
+            b_ms, b_by = bound(nbytes, (cands - shared) * OPS_SAD + cands * OPS_WARM_ENERGY)
+            old_ms, old_by = bound(nbytes, cands * (OPS_SAD + OPS_WARM_ENERGY))
             ms, call = kernel_ms(lambda: dense_kernel.dense_match_warm(*args, **kw),
                                  "dense_match_warm_kernel", 20)
             plain = cuda_ms(lambda: warm_plain(args, kw), 3)
             line += (f", kernel {ms:.4f} ms (per call {call:.4f} ms), plain {plain:.3f} ms, "
                      f"bound {b_ms:.5f} ms ({b_by}; {nbytes} B, {cands} in-image band "
-                     f"candidates of {2 * n * p.num_disp} (pixel, d, view))")
+                     f"candidates of {2 * n * p.num_disp} (pixel, d, view), {cands - shared} "
+                     f"distinct SADs; a SAD per candidate: {old_ms:.5f} ms, {old_by})")
             record("dense_match_warm", label, err, ms, plain, b_ms, b_by)
         print(f"{line} {card}")
         if mism:
@@ -826,7 +849,7 @@ def main() -> int:
         args = [torch.as_tensor(a, device=dev) for a in (dl_, dr_, mu_[0], mu_[1])]
         for sigma in (kw["sigma"], 1.5):
             mism, _ = mismatches(dense_kernel.dense_match_warm(*args, **{**kw, "sigma": sigma}),
-                                 ref.dense_match_rows_warm_ref(*args, **{**kw, "sigma": sigma}))
+                                 warm_plain(args, {**kw, "sigma": sigma}))
             pixels += 2 * mu_[0].size
             if mism:
                 failed.append(f"{case[0]} sigma {sigma}: {mism}")
@@ -931,7 +954,7 @@ def main() -> int:
     per_frame = {"support_match": 1, "dense_match_stream": 1, "dense_match_windowed": 0,
                  "sobel": 1, "median3x3": 1, "dense_match_warm": 0, "flash_attention": 0}
     frames = 6
-    single = {}
+    single, single_bad = {}, {}
     for cfg, d_max in ((KITTI, 100.0), (TSUKUBA, 48.0)):
         p = cfg.params
         il, ir, gt = pair(cfg, d_max)
@@ -973,6 +996,7 @@ def main() -> int:
         med = {key: median_of(v) for key, v in stage_ms.items()}
         wall_med = median_of(wall)
         single[cfg.name] = wall_med
+        single_bad[cfg.name] = bad
         print(f"e2e {cfg.name} {cfg.height}x{cfg.width} D={p.num_disp}: launches {counts} "
               f"in {frames} frames; median of {frames - 1} frames: support "
               f"{med['support']:.3f} ms, interpolation {med['interpolation']:.3f} ms, "
@@ -1274,7 +1298,67 @@ def main() -> int:
           f"(descriptors + warm dense stage) vs cold {cold_wall:.3f} ms (ielas_disparity), "
           f"wall, median of 5 {card}")
 
-    # ---- 10. summary -------------------------------------------------------
+    # ---- 10. hybrid baseline -------------------------------------------------
+    # Original ELAS with a host-side Delaunay prior (the paper's Table IV
+    # comparison) on phase 4's pairs: the support stage on the card, the
+    # grid to the host and two scipy Delaunay priors, the dense half (stream
+    # kernel) and post-processing (median kernel) on the card.
+    for cfg, d_max in ((KITTI, 100.0), (TSUKUBA, 48.0)):
+        p = cfg.params
+        il, ir, gt = pair(cfg, d_max)
+        reset_counts()
+        first = pipeline.elas_baseline_disparity(il, ir, p)    # the entry point, on cuda:0
+        torch.cuda.synchronize()
+        times = {"support": [], "host": [], "back": [], "wall": []}
+        for _ in range(BASELINE_FRAMES - 1):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            dl, dr, sup = pipeline.ielas_support_stage(
+                torch.as_tensor(il, device=dev), torch.as_tensor(ir, device=dev), p)
+            ev[1].record()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            mu_l, mu_r = pipeline._delaunay_priors(sup, cfg.height, cfg.width, p)
+            t2 = time.perf_counter()
+            ev[2].record()
+            out = pipeline._baseline_back_half(dl, dr, sup, mu_l, mu_r, p)
+            ev[3].record()
+            torch.cuda.synchronize()
+            times["wall"].append(time.perf_counter() - t0)
+            times["host"].append((t2 - t1) * 1e3)
+            times["support"].append(ev[0].elapsed_time(ev[1]))
+            times["back"].append(ev[2].elapsed_time(ev[3]))
+            if not torch.equal(out, first):
+                raise AssertionError(f"baseline {cfg.name}: frames of one input differ")
+        counts = read_counts()
+        expect = {k: BASELINE_FRAMES * n for k, n in per_frame.items()}
+        if counts != expect:
+            raise AssertionError(f"baseline {cfg.name}: launches {counts} for {BASELINE_FRAMES} "
+                                 f"frames, expected {expect}")
+        for k in launches:
+            launches[k] += counts[k]
+        check_output(f"baseline {cfg.name}", out, cfg)
+        on_cpu = pipeline.elas_baseline_disparity(il, ir, p, device="cpu")
+        cpu_mism = int((out.cpu() != on_cpu).sum())
+        gt_t = torch.as_tensor(gt, device=dev)
+        bad = float(pipeline.bad_pixel_rate(out, gt_t))
+        med = {key: median_of(v) for key, v in times.items()}
+        host_share = med["host"] / (med["wall"] * 1e3)
+        print(f"baseline {cfg.name} {cfg.height}x{cfg.width} (elas_baseline_disparity): "
+              f"launches {counts} in {BASELINE_FRAMES} frames; median of "
+              f"{BASELINE_FRAMES - 1} frames: support {med['support']:.3f} ms (CUDA events), "
+              f"host {med['host']:.3f} ms (the grids' copies to the host, two "
+              f"delaunay_prior calls and the priors' copies back, host clock; "
+              f"{host_share:.3f} of the frame), back half {med['back']:.3f} ms (CUDA events), "
+              f"frame {med['wall'] * 1e3:.3f} ms wall = {1.0 / med['wall']:.2f} fps against "
+              f"ielas_disparity's {1.0 / single[cfg.name]:.2f} fps (phase 4); bad-pixel rate "
+              f"(tau 3) {bad:.4f} against ielas_disparity's {single_bad[cfg.name]:.4f}; card vs "
+              f"CPU mismatches {cpu_mism} of {out.numel()} {card}")
+        if cpu_mism:
+            raise AssertionError(f"baseline {cfg.name}: card vs CPU differ in {cpu_mism} pixels")
+
+    # ---- 11. summary -------------------------------------------------------
     shown = {"flash_attention": "qwen2.5-32b bfloat16 causal"}
     entries = []
     for kname, _, _, source, replaces in kernels:

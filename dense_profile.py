@@ -2,7 +2,7 @@
 """What bounds the stereo kernels on one card: variants timed in turns.
 
     python3 dense_profile.py [--rounds N] [--reps N] [--sass-of PARENT_SUPPORT_CU]
-                             [--median-of PARENT_MEDIAN_CU]
+                             [--median-of PARENT_MEDIAN_CU] [--warm-of PARENT_WARM_CU]
 
 For ``elas-kitti`` and ``elas-tsukuba`` (seed 0) it prepares one frame's
 inputs on the card, builds variants of
@@ -45,15 +45,24 @@ launch rate bounds below ~10 us):
   parent's; checked);
 * warm band kernel (frame 1 of a pan seeded by the card's cold output of
   frame 0, band 8): ``L2-resident`` (every block reads one row's inputs),
-  ``no division`` (the prior's division replaced by a negation), ``SAD
-  only`` (the energy replaced by one FMA) and ``no candidates`` (the
-  thread's own loads and the store only).
+  ``no division`` (the prior's reciprocal replaced by a negation), ``SAD
+  only`` (the energy replaced by one FMA), ``no candidates`` (staging and
+  the stores only), and, checked against the plain version, ``true
+  division`` (every candidate divides, as the parent's source), ``uniform
+  trip count`` (every lane walks 2 band + 1 predicated steps), ``512
+  threads a block``, ``SAD table`` (the left view's SADs in a shared table
+  that the right view reads where its candidate lies in the left pixel's
+  band), the four together, ``half-warp per
+  pixel`` (16 lanes a pixel's band, the lanes' results met by shuffles),
+  and with ``--warm-of`` another ``dense_match_warm.cu`` (e.g. a parent's).
 
 It also prints the candidate counts per pixel and view (from the bitmasks and
 priors) and the share of a warp's lanes busy while it walks them (the mean
-count over the warp's busiest lane's), and, from ``cuobjdump -sass`` of the
-support library (and of ``--sass-of``, e.g. a parent commit's source), the
-instructions of each loop that computes SADs, per (column, d) pair.  Each
+count over the warp's busiest lane's), the warm band's candidates and the
+share of right-view ones whose SAD the left view also needs, and, from
+``cuobjdump -sass`` of the support library (and of ``--sass-of``, e.g. a
+parent commit's source), the instructions of each loop that computes SADs,
+per (column, d) pair.  Each
 line carries the card's name and power limit.  Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -74,6 +83,88 @@ STUB = ('#include "xla_math.cuh"\n', '#include "xla_math.cuh"\n'
         '    float, float, float) { return __fmaf_rn(beta, (float)sad, df - mu); }\n'
         '}  // namespace ielas\n')
 NO_ENERGY = [STUB, ("ielas::energy(", "ielas::stub_energy(")]
+# Warm kernel variants.  The left view's SADs in a shared table (d - lo, x)
+# that the right view reads where its candidate lies in the left pixel's
+# band (right pixel u at d and left pixel u + d at d share a SAD).
+WARM_TABLE = [
+    ("  uint4* sr = smem + w;\n",
+     "  uint4* sr = smem + w;\n"
+     "  int2* bands = reinterpret_cast<int2*>(smem + 2 * w);\n"
+     "  uint16_t* table = reinterpret_cast<uint16_t*>(bands + w);\n"),
+    ("      sr[x] = ielas::flip(gr[x]);\n",
+     "      sr[x] = ielas::flip(gr[x]);\n      bands[x] = band_of(mu_l[x], p);\n"),
+    ("[&](int d) { return ielas::sad16(a, right_col(x - d)); }",
+     "[&](int d) { const int s = ielas::sad16(a, right_col(x - d));\n"
+     "      table[(d - b.x) * w + x] = (uint16_t)s; return s; }"),
+    ("  // Right view: pixel u at d", "  __syncthreads();\n  // Right view: pixel u at d"),
+    ("[&](int d) { return ielas::sad16(a, left_col(u + d)); }",
+     "[&](int d) { const int2 c = bands[u + d];\n"
+     "      return d >= c.x && d <= c.y ? (int)table[(d - c.x) * w + u + d]\n"
+     "                                  : ielas::sad16(a, left_col(u + d)); }"),
+    ("  const size_t staged = 2 * (size_t)w * sizeof(uint4);\n",
+     "  const size_t staged = 2 * (size_t)w * sizeof(uint4) + (size_t)w * sizeof(int2) +\n"
+     "                        (size_t)(2 * band + 1) * w * sizeof(uint16_t);\n"),
+]
+# Every lane walks min(2 band + 1, D) predicated steps.
+WARM_UNIFORM = [(
+    "  for (int d = lo; d <= hi; ++d) {\n"
+    "    best.fold(warm_energy<kFast>(sad_of(d), (float)d, mu, p.beta, p.inv_2s2), d);\n"
+    "  }\n",
+    "  const int steps = min(2 * p.band + 1, p.num_disp);\n"
+    "  for (int k = 0; k < steps; ++k) {\n"
+    "    const int d = lo + k;\n"
+    "    if (d <= hi)\n"
+    "      best.fold(warm_energy<kFast>(sad_of(d), (float)d, mu, p.beta, p.inv_2s2), d);\n"
+    "  }\n")]
+WARM_DIVISION = [("  return inv_2s2 >= 0.0f && ", "  return false && inv_2s2 >= 0.0f && ")]
+WARM_512 = [("constexpr int kMaxThreads = 1024;", "constexpr int kMaxThreads = 512;")]
+# A half-warp per pixel: lane j of 16 walks d = lo + j, lo + j + 16, ..., and
+# the 16 lanes' (energy, d) meet by shuffles, the least energy and then the
+# least d winning (the strict-< fold's result).
+WARM_HALF_WARP = [
+    (("  // Left view: pixel x at d matches", "template <bool kStaged>\ncudaError_t launch"), r"""
+  const int lane = threadIdx.x & 15, slots = blockDim.x >> 4, first = threadIdx.x >> 4;
+  const int passes = (w + slots - 1) / slots;
+  auto half = [&](int lo, int hi, float mu, auto&& sad_of) {
+    Best best;
+    const bool fast = fast_band(lo, hi, mu, p.inv_2s2);
+    for (int d = lo + lane; d <= hi; d += 16) {
+      const int sad = sad_of(d);
+      best.fold(fast ? warm_energy<true>(sad, (float)d, mu, p.beta, p.inv_2s2)
+                     : warm_energy<false>(sad, (float)d, mu, p.beta, p.inv_2s2), d);
+    }
+    for (int o = 8; o > 0; o >>= 1) {
+      const float e = __shfl_xor_sync(0xffffffffu, best.e, o);
+      const int d = __shfl_xor_sync(0xffffffffu, best.d, o);
+      if (e < best.e || (e == best.e && d < best.d)) { best.e = e; best.d = d; }
+    }
+    return best;
+  };
+  for (int i = 0; i < passes; ++i) {
+    const int x = first + i * slots, xx = x < w ? x : 0;
+    const uint4 a = left_col(xx);
+    const float mu = mu_l[xx];
+    const int2 b = band_of(mu, p);
+    const Best best = half(b.x, x < w ? min(b.y, xx) : b.x - 1, mu,
+                           [&](int d) { return ielas::sad16(a, right_col(xx - d)); });
+    if (x < w && lane == 0) p.out_l[row_px + x] = best.result(a, p.match_texture);
+  }
+  for (int i = 0; i < passes; ++i) {
+    const int u = first + i * slots, uu = u < w ? u : 0;
+    const uint4 a = right_col(uu);
+    const float mu = mu_r[uu];
+    const int2 b = band_of(mu, p);
+    const Best best = half(b.x, u < w ? min(b.y, w - 1 - uu) : b.x - 1, mu,
+                           [&](int d) { return ielas::sad16(a, left_col(uu + d)); });
+    if (u < w && lane == 0) p.out_r[row_px + u] = best.result(a, p.match_texture);
+  }
+}
+
+"""),
+    ("  const int passes = (w + kMaxThreads - 1) / kMaxThreads;\n"
+     "  const int threads = ((w + passes - 1) / passes + 31) / 32 * 32;\n",
+     "  const int threads = kMaxThreads;\n"),
+]
 VARIANTS = {
     "dense_match_stream": {
         "as built": [],
@@ -153,15 +244,22 @@ VARIANTS = {
     },
     "dense_match_warm": {
         "as built": [],
-        "L2-resident": [("  if (row >= rows) return;\n",
-                         "  if (row >= rows) return;\n  const int mid_row = rows / 2;\n"
-                         "#define row mid_row\n")],
-        "no division": [("  const float prior = -__fdiv_rn(1.0f, q);\n",
+        "L2-resident": [("  const size_t row_px = (size_t)blockIdx.x * w;",
+                         "  const size_t row_px = (size_t)(gridDim.x / 2) * w;")],
+        "no division": [("  const float prior = kFast ? -reciprocal(q) : -__fdiv_rn(1.0f, q);\n",
                          "  const float prior = -q;\n")],
-        "SAD only": [("      const float e = warm_energy(sad, (float)d, mu, beta, inv_2s2);\n",
-                      "      const float e = __fmaf_rn(beta, (float)sad, (float)d);\n")],
-        "no candidates": [("    for (int d = lo; d <= hi; ++d) {\n",
-                           "    for (int d = lo; d <= hi && d < lo; ++d) {\n")],
+        "SAD only": [("  const float diff = __fsub_rn(df, mu);\n",
+                      "  return __fmaf_rn(beta, (float)sad, __fsub_rn(df, mu));\n"
+                      "  const float diff = __fsub_rn(df, mu);\n")],
+        "no candidates": [("  for (int d = lo; d <= hi; ++d) {\n",
+                           "  for (int d = lo; d < lo; ++d) {\n")],
+        "true division": WARM_DIVISION,
+        "uniform trip count": WARM_UNIFORM,
+        "512 threads a block": WARM_512,
+        "SAD table": WARM_TABLE,
+        "SAD table, uniform trip count, true division, 512 threads": (
+            WARM_TABLE + WARM_UNIFORM + WARM_DIVISION + WARM_512),
+        "half-warp per pixel": WARM_HALF_WARP,
     },
 }
 
@@ -215,6 +313,8 @@ def main() -> int:
                     help="another support_match.cu (e.g. a parent's) to count SASS of")
     ap.add_argument("--median-of", default=None,
                     help="another median.cu (e.g. a parent's) to time beside the median")
+    ap.add_argument("--warm-of", default=None,
+                    help="another dense_match_warm.cu (e.g. a parent's) to time beside it")
     args = ap.parse_args()
 
     import torch
@@ -259,15 +359,22 @@ def main() -> int:
         for label, subs in table.items():
             text = (_build.CSRC / f"{src}.cu").read_text()
             for old, new in subs:
-                if old not in text:
+                # A pair (start, end) replaces the text from start up to end.
+                first, last = old if isinstance(old, tuple) else (old, None)
+                i = text.find(first)
+                j = i + len(first) if last is None else text.find(last, i)
+                if i < 0 or j < 0:
                     raise RuntimeError(f"{src}.cu no longer holds {old!r}: update dense_profile.py")
-                text = text.replace(old, new, 1)
+                text = text[:i] + new + text[j:]
             jobs[(src, label)] = start_build(text, f"{src}-{re.sub('[^A-Za-z0-9-]+', '_', label)}")
     if args.sass_of:
         jobs[("sass-of", "")] = start_build(Path(args.sass_of).read_text(), "support_match-sass_of")
     if args.median_of:
         jobs[("median", "given source")] = start_build(Path(args.median_of).read_text(),
                                                       "median-given")
+    if args.warm_of:
+        jobs[("dense_match_warm", "given source")] = start_build(
+            Path(args.warm_of).read_text(), "dense_match_warm-given")
     libs = {}
     for key, (proc, so) in jobs.items():
         log, _ = proc.communicate()
@@ -380,6 +487,11 @@ def main() -> int:
                        sigma=p.sigma, match_texture=p.match_texture)
         print(f"{cfg.name}: median input {int((med_in == -1).sum())} invalid pixels of "
               f"{med_in.numel()} {card}")
+        left, right, shared = ref.warm_band_counts(wmu_l, wmu_r, num_disp=p.num_disp,
+                                                   disp_min=p.disp_min, warm_band=8)
+        print(f"{cfg.name} warm band 8: {left} left and {right} right candidates, {shared} "
+              f"right ones ({shared / max(right, 1):.4f}) sharing the left view's SAD, "
+              f"{left + right - shared} distinct SADs {card}")
 
         def current() -> int:
             return torch.cuda.current_stream().cuda_stream
@@ -436,8 +548,10 @@ def main() -> int:
             call, check = launch(src, lib)
             if call() != 0:
                 raise RuntimeError(f"{src} {label}: launch failed")
-            checked = label in ("as built", "given source", "8 warps a block") or label.endswith(
-                ("blocks a row", "a thread", "sums"))
+            checked = label in ("as built", "given source", "8 warps a block", "true division",
+                                "uniform trip count", "512 threads a block",
+                                "half-warp per pixel") or label.startswith("SAD table") or \
+                label.endswith(("blocks a row", "a thread", "sums"))
             if checked and check():
                 raise AssertionError(f"{src} {label} disagrees with its plain version")
             runs[(src, label)] = call

@@ -19,7 +19,8 @@ argument picks one (:func:`repro_torch.core.tiling.dense_route`):
   and the candidate-window kernel
   (:func:`repro_torch.kernels.dense_match.dense_match_candidates`).
 
-Either way one kernel launch covers both views of a frame, or of a wave.
+Either way one kernel launch covers both views of a frame, or of a wave;
+:func:`dense_disparity` is the single-view wrapper over it.
 
 :func:`dense_warm_both_views` is the warm-start variant (counterpart of
 ``dense_match_warm_xla``): the band around a previous frame's disparity
@@ -106,6 +107,25 @@ def dense_both_views(
     if desc_l.dim() != 3:
         raise ValueError(f"descriptors must be (H, W, 16), got {tuple(desc_l.shape)}")
     return _dense(desc_l, desc_r, mu_l, mu_r, grid_vec_l, grid_vec_r, p, tile)
+
+
+def dense_disparity(
+    desc_src: torch.Tensor,     # (H, W, 16) int8, the view whose map is returned
+    desc_dst: torch.Tensor,     # (H, W, 16) int8, the other view
+    mu: torch.Tensor,           # (H, W) float32 prior of the source view
+    grid_vec: torch.Tensor,     # (CH, CW, K)
+    p: ElasParams,
+    direction: int = -1,
+    tile: TileArg = None,
+) -> torch.Tensor:
+    """Single-view compatibility wrapper over :func:`dense_both_views`.
+
+    direction=-1: the arguments are left-view (src=left); returns the left map.
+    direction=+1: the arguments are right-view (src=right); returns the right map.
+    """
+    if direction == -1:
+        return dense_both_views(desc_src, desc_dst, mu, mu, grid_vec, grid_vec, p, tile=tile)[0]
+    return dense_both_views(desc_dst, desc_src, mu, mu, grid_vec, grid_vec, p, tile=tile)[1]
 
 
 def dense_both_views_batched(

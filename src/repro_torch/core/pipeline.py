@@ -18,6 +18,11 @@ The warm-start stages serve video: :func:`ielas_descriptor_stage_batched`
 whose priors come from the previous frame's disparity (:func:`_warm_priors`)
 and whose dense kernel scans only a band around them.
 
+:func:`elas_baseline_disparity` is the original-ELAS hybrid the paper
+compares against: the same support stage, then the support grid pulled to
+the host for a scipy Delaunay prior of each view, pushed back for the dense
+half.
+
 The ``*_batched`` stages are the wave-shaped forms the serving engine
 runs: a leading batch axis of B frames, one launch of each kernel per
 wave, and every slot equal to the single-frame stage on that frame, bit
@@ -40,6 +45,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import descriptor as desc_mod
+from repro_torch.core import triangulation
 from repro_torch.core.dense import (
     dense_both_views,
     dense_both_views_batched,
@@ -261,6 +267,56 @@ def ielas_disparity(
     dl, dr, support = ielas_support_stage(il, ir, p)
     support = ielas_interpolate_stage(support, p)
     return ielas_dense_stage(dl, dr, support, p, tile=tile)
+
+
+def _baseline_back_half(
+    dl: torch.Tensor,
+    dr: torch.Tensor,
+    support_sparse: torch.Tensor,   # (GH, GW) filtered support, not interpolated
+    mu_l: torch.Tensor,             # (H, W) float32 Delaunay priors
+    mu_r: torch.Tensor,
+    p: ElasParams,
+) -> torch.Tensor:
+    """The baseline's dense half: grid vectors of the sparse support of both
+    views, dense matching on the Delaunay priors (the stream kernel),
+    post-processing."""
+    gv_l = build_grid_vector(support_sparse, p)
+    sup_r = right_view_support(support_sparse, p)
+    gv_r = build_grid_vector(sup_r, p)
+    disp_l, disp_r = dense_both_views(dl, dr, mu_l, mu_r, gv_l, gv_r, p)
+    return postprocess(disp_l, disp_r, p)
+
+
+def _delaunay_priors(
+    support: torch.Tensor, h: int, w: int, p: ElasParams
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The baseline's host part: the left support grid and its right-view
+    re-projection are pulled to the host, each view's prior is a scipy
+    Delaunay rasterisation, and both are pushed back to ``support``'s device.
+    This round trip is the baseline's cost: do not move it to the device."""
+    mu_l = triangulation.delaunay_prior(support.cpu().numpy(), h, w, p)
+    sup_r = right_view_support(support, p)
+    mu_r = triangulation.delaunay_prior(sup_r.cpu().numpy(), h, w, p)
+    return (torch.as_tensor(mu_l, device=support.device),
+            torch.as_tensor(mu_r, device=support.device))
+
+
+def elas_baseline_disparity(img_left, img_right, p: ElasParams, device=None) -> torch.Tensor:
+    """Original-ELAS baseline with host-side Delaunay (the [6]-style hybrid):
+    (H, W) float32 left disparity, -1 where invalid.
+
+    Not one device program by construction: the support grid is pulled to
+    the host, triangulated irregularly, and the rasterised priors are pushed
+    back (:func:`_delaunay_priors`).  The images are moved to ``device``
+    (default ``cuda:0``; raises if no card is present).
+    """
+    dev = resolve_device(device)
+    il = torch.as_tensor(img_left, device=dev)
+    ir = torch.as_tensor(img_right, device=dev)
+    h, w = il.shape[:2]
+    dl, dr, support = ielas_support_stage(il, ir, p)
+    mu_l, mu_r = _delaunay_priors(support, h, w, p)
+    return _baseline_back_half(dl, dr, support, mu_l, mu_r, p)
 
 
 def disparity_error(

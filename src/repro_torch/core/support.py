@@ -70,3 +70,10 @@ def descriptors_and_support(
     """Descriptors for both views + the (unfiltered) support grid."""
     dl, dr = desc_mod.extract_views(img_left, img_right)
     return dl, dr, extract_support_grid(dl, dr, p)
+
+
+def support_from_images(
+    img_left: torch.Tensor, img_right: torch.Tensor, p: ElasParams
+) -> torch.Tensor:
+    """The (unfiltered) support grid (GH, GW) of a stereo pair."""
+    return descriptors_and_support(img_left, img_right, p)[2]

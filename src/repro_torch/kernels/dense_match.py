@@ -16,7 +16,8 @@
 On CUDA tensors each launches its kernel once for both views of a frame,
 or of every frame of a wave (a leading batch axis); on CPU tensors it runs
 the plain version.  :func:`xla_exp_log` evaluates the kernels' float32 exp
-and log on the card, so they can be held against the plain helpers.
+and log on the card, and :func:`warm_reciprocal` the warm kernel's
+reciprocal, so they can be held against the plain helpers and a division.
 """
 from __future__ import annotations
 
@@ -66,6 +67,8 @@ WARM_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float] * 
 WARM_MAX_DISP = 1 << 24
 # ielas_xla_exp_log(x, ex, lg, n, stream)
 EXP_LOG_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
+# ielas_warm_reciprocal(q, out, n, stream)
+WARM_RECIPROCAL_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_void_p]
 
 
 @functools.cache
@@ -81,6 +84,11 @@ def _windowed_kernel():
 @functools.cache
 def _warm_kernel():
     return _build.bind("dense_match_warm", "ielas_dense_match_warm", WARM_ARGTYPES)
+
+
+@functools.cache
+def _warm_reciprocal_kernel():
+    return _build.bind("dense_match_warm", "ielas_warm_reciprocal", WARM_RECIPROCAL_ARGTYPES)
 
 
 @functools.cache
@@ -309,3 +317,21 @@ def xla_exp_log(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         if err:
             raise RuntimeError(f"xla_exp_log kernel launch failed: cudaError_t {err}")
     return ex, lg
+
+
+def warm_reciprocal(q: torch.Tensor) -> torch.Tensor:
+    """The warm kernel's reciprocal 1 / q (rcp.approx and one Newton step) for
+    a float32 tensor on the card, meaningful for q in [1, 2**126), where the
+    kernel uses it and it must equal a correctly rounded division.  No plain
+    version: on the CPU the kernel's prior divides."""
+    if q.device.type != "cuda" or q.dtype != torch.float32:
+        raise ValueError("warm_reciprocal takes a float32 CUDA tensor")
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    if q.numel():
+        with torch.cuda.device(q.device):
+            err = _warm_reciprocal_kernel()(q.data_ptr(), out.data_ptr(), q.numel(),
+                                            torch.cuda.current_stream(q.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"warm_reciprocal kernel launch failed: cudaError_t {err}")
+    return out

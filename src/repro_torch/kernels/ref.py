@@ -721,6 +721,46 @@ def dense_match_rows_warm_ref(
     return finish(left, desc_l), finish(right, desc_r)
 
 
+def warm_band_counts(
+    mu_l: torch.Tensor,         # (..., W) float32 warm priors
+    mu_r: torch.Tensor,
+    *,
+    num_disp: int,
+    disp_min: int,
+    warm_band: int,
+) -> tuple[int, int, int]:
+    """The work :func:`dense_match_rows_warm_ref` needs on these priors:
+    (left-view candidates, right-view candidates, right-view candidates whose
+    SAD a left-view candidate also needs).  Right pixel ``u`` at ``d`` and
+    left pixel ``u + d`` at ``d`` both need SAD(L[u + d], R[u]), so the
+    distinct SADs number left + right - shared.  A measurement helper for the
+    kernel's bound; the scan does not use it."""
+    w = mu_l.shape[-1]
+    u = torch.arange(w, device=mu_l.device)
+    lo_d, hi_d = float(disp_min), float(disp_min + num_disp - 1)
+
+    def band(mu, cut):
+        r = torch.round(mu)
+        nan = torch.isnan(r)
+        lo = torch.where(nan, 1.0, (r - warm_band).clamp(lo_d, hi_d)).to(torch.int64)
+        hi = torch.where(nan, 0.0, (r + warm_band).clamp(lo_d, hi_d)).to(torch.int64)
+        return lo, hi, torch.minimum(hi, cut)
+
+    lo_l, hi_l, cut_l = band(mu_l, u)
+    lo_r, _, cut_r = band(mu_r, w - 1 - u)
+    shared = 0
+    for k in range(min(2 * warm_band + 1, num_disp)):
+        d = lo_r + k
+        x = (u + d).clamp(max=w - 1)
+        hit = (d <= cut_r) & (d >= lo_l.gather(-1, x)) & (d <= hi_l.gather(-1, x))
+        shared += int(hit.sum())
+
+    def count(lo, cut):
+        return int((cut - lo + 1).clamp(min=0).sum())
+
+    return count(lo_l, cut_l), count(lo_r, cut_r), shared
+
+
 # --------------------------------------------------------------------------
 # 3x3 stencils: Sobel and median
 # --------------------------------------------------------------------------

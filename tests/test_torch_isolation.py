@@ -49,7 +49,8 @@ def test_no_jax_or_reference_import(path):
 def test_import_leaves_jax_unloaded():
     code = (
         "import sys\n"
-        "import repro_torch.core.pipeline, repro_torch.kernels.support_match, "
+        "import repro_torch.core.pipeline, repro_torch.core.triangulation, "
+        "repro_torch.kernels.support_match, "
         "repro_torch.kernels.dense_match, repro_torch.kernels.sobel, "
         "repro_torch.kernels.median, repro_torch.kernels.flash_attention, "
         "repro_torch.core.tiling, repro_torch.configs.elas_stereo, repro_torch.data.stereo, "

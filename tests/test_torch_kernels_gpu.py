@@ -45,6 +45,7 @@ _C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_flo
     ("dense_match_stream", "ielas_xla_exp_log", dense_kernel.EXP_LOG_ARGTYPES),
     ("dense_match_windowed", "ielas_dense_match_windowed", dense_kernel.WINDOWED_ARGTYPES),
     ("dense_match_warm", "ielas_dense_match_warm", dense_kernel.WARM_ARGTYPES),
+    ("dense_match_warm", "ielas_warm_reciprocal", dense_kernel.WARM_RECIPROCAL_ARGTYPES),
     ("sobel", "ielas_sobel", sobel_kernel.ARGTYPES),
     ("median", "ielas_median3x3", median_kernel.ARGTYPES),
     ("flash_attention", "ielas_flash_attention", flash_kernel.ARGTYPES),
@@ -232,17 +233,37 @@ def test_median_kernel_takes_stacks_at_any_offset_on_card(case, offset, cuda_dev
 def test_warm_kernel_matches_plain_on_card(case, cuda_device):
     dl, dr, mu, kw = warm_inputs(case)
     args = [torch.as_tensor(a, device=cuda_device) for a in (dl, dr, mu[0], mu[1])]
+    w = dl.shape[-2]           # a stack of frames: the plain version takes its rows
+
+    def plain(**over):
+        rows = (args[0].reshape(-1, w, 16), args[1].reshape(-1, w, 16),
+                args[2].reshape(-1, w), args[3].reshape(-1, w))
+        return [o.reshape(args[2].shape) for o in ref.dense_match_rows_warm_ref(
+            *rows, **{**kw, **over})]
+
     before = dense_kernel.warm_launches
     got = dense_kernel.dense_match_warm(*args, **kw)
     torch.cuda.synchronize()
     assert dense_kernel.warm_launches == before + 1
-    want = ref.dense_match_rows_warm_ref(*args, **kw)
-    for g, x in zip(got, want):
+    for g, x in zip(got, plain()):
         assert torch.equal(g, x)
     for sigma in (1.5, 0.7):
         got = dense_kernel.dense_match_warm(*args, **{**kw, "sigma": sigma})
-        want = ref.dense_match_rows_warm_ref(*args, **{**kw, "sigma": sigma})
-        assert all(torch.equal(g, x) for g, x in zip(got, want))
+        assert all(torch.equal(g, x) for g, x in zip(got, plain(sigma=sigma)))
+
+
+@pytest.mark.gpu
+def test_warm_reciprocal_is_a_correctly_rounded_division_on_card(cuda_device):
+    """The warm kernel's fast reciprocal against a division, on every float32
+    of [1, 2) and [2^125, 2^126) and at random points between (chip_smoke.py
+    covers all of [1, 2^126))."""
+    ends = [torch.arange(0x3F800000, 0x40000000, dtype=torch.int32),
+            torch.arange(0x7E000000, 0x7E800000, dtype=torch.int32),
+            torch.randint(0x3F800000, 0x7E800000, (1 << 22,), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(0))]
+    q = torch.cat(ends).to(cuda_device).view(torch.float32)
+    want = torch.div(torch.ones_like(q), q)
+    assert torch.equal(dense_kernel.warm_reciprocal(q).view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.gpu

@@ -117,13 +117,50 @@ def test_warm_priors_from_an_all_invalid_map_match_reference():
 @pytest.mark.parametrize("case", WARM_CASES, ids=[c[0] for c in WARM_CASES])
 def test_warm_ref_scan_matches_oracle(case, precision):
     dl, dr, mu, kw = warm_inputs(case)
+    w = dl.shape[-2]           # a stack of frames is scanned as its rows
+    rows = [dl.reshape(-1, w, 16), dr.reshape(-1, w, 16), mu[0].reshape(-1, w),
+            mu[1].reshape(-1, w)]
     oracle = jax.jit(functools.partial(jref.dense_match_rows_warm_ref, **kw, precision=precision))
-    want = oracle(dl, dr, mu[0], mu[1])
-    got = ref.dense_match_rows_warm_ref(*(torch.as_tensor(a) for a in (dl, dr, mu[0], mu[1])),
-                                        **kw)
+    want = oracle(*rows)
+    got = ref.dense_match_rows_warm_ref(*(torch.as_tensor(a) for a in rows), **kw)
     for g, x in zip(got, want):
         assert g.dtype == torch.float32
         assert np.array_equal(g.numpy(), np.asarray(x))
+
+
+@pytest.mark.parametrize("case", WARM_CASES, ids=[c[0] for c in WARM_CASES])
+def test_warm_band_counts_match_a_direct_count(case):
+    """ref.warm_band_counts (the warm kernel's bound and shared share) against
+    a count pixel by pixel: each view's in-image band candidates, and the
+    right-view ones (u, d) whose left pixel u + d holds d in its band."""
+    _, _, mu, kw = warm_inputs(case)
+    w = mu.shape[-1]
+    got = ref.warm_band_counts(torch.as_tensor(mu[0]), torch.as_tensor(mu[1]),
+                               num_disp=kw["num_disp"], disp_min=kw["disp_min"],
+                               warm_band=kw["warm_band"])
+    lo_d, hi_d = kw["disp_min"], kw["disp_min"] + kw["num_disp"] - 1
+
+    def band(m):
+        if np.isnan(m):
+            return range(0)
+        r = np.round(m)
+        return range(int(np.clip(r - kw["warm_band"], lo_d, hi_d)),
+                     int(np.clip(r + kw["warm_band"], lo_d, hi_d)) + 1)
+
+    left = right = shared = 0
+    for row_l, row_r in zip(mu[0].reshape(-1, w), mu[1].reshape(-1, w)):
+        bands_l = [band(m) for m in row_l]
+        for x in range(w):
+            left += sum(d <= x for d in bands_l[x])
+            for d in band(row_r[x]):
+                if x + d < w:
+                    right += 1
+                    shared += d in bands_l[x + d]
+    assert got == (left, right, shared)
+    if case[6] == "consistent":
+        assert shared == right > 0
+    if case[6] == "disjoint":
+        assert shared == 0 < right
 
 
 @pytest.mark.parametrize("sigma", [1.0, 1.5, 0.7, 3.0])

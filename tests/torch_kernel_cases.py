@@ -239,11 +239,18 @@ def median_stack(case):
 
 
 # Warm band cases: (id, rows, width, num_disp, disp_min, warm_band, mu kind,
-# desc kind, texture, seed).  Bands at either end of the search range and
-# beyond it, of width 0 and wider than the range, cut by the image on both
-# views, ties on the prior energy (half-integer and integer priors with
-# constant descriptors), the texture gate, a NaN prior (an empty band), and a
-# width one past the kernel's 128-pixel tile.
+# desc kind, texture, seed[, frames]).  Bands at either end of the search
+# range and beyond it, of width 0 and wider than the range, cut by the image
+# on both views, ties on the prior energy (half-integer and integer priors
+# with constant descriptors), the texture gate, a NaN prior (an empty band).
+# The kernel's paths: a block per row in equal passes of at most 1024
+# threads (1025 wide: one past a pass), rows too wide to stage in shared
+# memory (7265: read from global memory), a band of 81 candidates, priors
+# whose energies overflow the fast reciprocal's range (+-1.5e19: those
+# pixels divide, their neighbours do not), a stack of three frames
+# (``frames``; the arrays then carry a leading frame axis), and the two
+# views' bands fully shared (consistent priors: every right-view candidate's
+# SAD is a left-view candidate's too) or not at all (disjoint priors).
 WARM_CASES = [
     ("random-w37-d16-b3", 3, 37, 16, 0, 3, "spread", "random", 1, 0),
     ("dmin4-w29-d12-b2", 2, 29, 12, 4, 2, "spread", "random", 1, 1),
@@ -258,27 +265,52 @@ WARM_CASES = [
     ("all-off-image-w9-d20-b3", 2, 9, 20, 6, 3, "spread", "random", 1, 10),
     ("nan-prior-w21-d16-b4", 2, 21, 16, 0, 4, "nan", "random", 1, 11),
     ("tile-plus-one-w129-d40-b8", 2, 129, 40, 0, 8, "spread", "random", 1, 12),
+    ("consistent-priors-w97-d32-b8", 3, 97, 32, 0, 8, "consistent", "random", 1, 13),
+    ("disjoint-priors-w61-d40-b3", 2, 61, 40, 0, 3, "disjoint", "random", 1, 14),
+    ("pass-plus-one-w1025-d24-b8", 2, 1025, 24, 0, 8, "spread", "random", 1, 15),
+    ("wide-band-w3001-d100-b40", 2, 3001, 100, 0, 40, "spread", "random", 1, 16),
+    ("rows-past-shared-memory-w7265-d16-b4", 2, 7265, 16, 0, 4, "spread", "random", 1, 17),
+    ("stack-of-3-w45-d20-b5", 2, 45, 20, 2, 5, "spread", "random", 1, 18, 3),
+    ("huge-prior-w67-d24-b4", 2, 67, 24, 0, 4, "huge", "random", 1, 19),
 ]
 
 
 def warm_inputs(case):
-    _, h, w, nd, dmin, band, mu_kind, dkind, tex, seed = case
+    _, h, w, nd, dmin, band, mu_kind, dkind, tex, seed, *frames = case
+    lead = tuple(frames)            # () or (frames,)
     rng = np.random.default_rng(seed)
-    dl = _desc(rng, (h, w, 16), dkind)
-    dr = _desc(rng, (h, w, 16), dkind)
+    dl = _desc(rng, (int(np.prod(lead, dtype=int)) * h, w, 16), dkind).reshape(*lead, h, w, 16)
+    dr = _desc(rng, (int(np.prod(lead, dtype=int)) * h, w, 16), dkind).reshape(*lead, h, w, 16)
+    shape = (2, *lead, h, w)
     lo, hi = dmin, dmin + nd - 1
     if mu_kind in ("spread", "nan"):
-        mu = rng.uniform(lo - 3, hi + 3, (2, h, w))
+        mu = rng.uniform(lo - 3, hi + 3, shape)
         if mu_kind == "nan":
-            mu[rng.random((2, h, w)) < 0.3] = np.nan
+            mu[rng.random(shape) < 0.3] = np.nan
     elif mu_kind == "low":
-        mu = rng.uniform(lo - band - 2, lo + 2, (2, h, w))
+        mu = rng.uniform(lo - band - 2, lo + 2, shape)
     elif mu_kind == "high":
-        mu = rng.uniform(hi - 2, hi + band + 2, (2, h, w))
+        mu = rng.uniform(hi - 2, hi + band + 2, shape)
     elif mu_kind == "far":
         mu = np.stack([np.full((h, w), lo - 40.0), np.full((h, w), hi + 40.0)])
+    elif mu_kind == "consistent":
+        # Both views round to one integer per row: equal bands, so right
+        # pixel u at d and left pixel u + d share every SAD.
+        rows = rng.integers(lo, hi + 1, (*lead, h, 1)).astype(np.float64)
+        mu = rows + rng.uniform(-0.4, 0.4, shape)
+    elif mu_kind == "huge":
+        # (d - mu)^2 / 2 near float32's top: q past 2^126 at +-1.5e19 (a
+        # division), inside it at +-1e19 and for the rest.
+        mu = rng.uniform(lo - 3, hi + 3, shape)
+        pick = rng.integers(0, 5, shape)
+        mu = np.select([pick == 0, pick == 1, pick == 2, pick == 3],
+                       [np.float64(1.5e19), np.float64(-1.5e19), np.float64(1e19),
+                        np.float64(-1e19)], mu)
+    elif mu_kind == "disjoint":
+        # Left bands low in the range, right bands high: no SAD shared.
+        mu = np.stack([rng.uniform(lo, lo + 5, shape[1:]), rng.uniform(hi - 9, hi, shape[1:])])
     else:
-        mu = _tie_prior(rng, mu_kind, lo, hi, (2, h, w))
+        mu = _tie_prior(rng, mu_kind, lo, hi, shape)
     kw = dict(num_disp=nd, disp_min=dmin, warm_band=band, beta=0.02, sigma=1.0,
               match_texture=tex)
     return dl, dr, mu.astype(np.float32), kw
