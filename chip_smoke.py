@@ -31,10 +31,17 @@ Phases (any failure exits nonzero):
     and the warm kernel (sigma 1 and 1.5) on every case of
     ``tests/torch_kernel_cases.py``;
     kernel, plain and bound times (every kernel time from a profiler row of
-    that kernel's symbol);
+    that kernel's symbol; the plain versions' and SDPA's, the device time of
+    a call: the device rows of two agreeing traces for the plain stereo
+    versions of thousands of launches, CUDA events around calls queued
+    behind a spin kernel for SDPA and the plain versions of a few);
     flash attention at qwen2.5-32b's width against its plain version, with
     ``F.scaled_dot_product_attention``'s time, and how many of its outputs
     lie outside FLASH_TOL of the plain version, beside it as a yardstick;
+    flash in bfloat16 at yi-9b's serving shapes (decode: B=4, H=32, one query
+    against 1, 17, 31 and 4096 keys, full; prefill-shaped 16 x 16, causal),
+    the decode shapes of 31 and 4096 keys timed with the kernel's byte bound,
+    the path's (yi-9b's 4 KV heads read once) and SDPA's time;
  4. single frame: ``ielas_disparity`` for elas-kitti and elas-tsukuba, one
     warm-up frame and five timed frames each, with the support, stream,
     Sobel and median launch counts rising by one per frame; per-stage and
@@ -82,7 +89,21 @@ Phases (any failure exits nonzero):
     frames per second and the bad-pixel rate beside phase 4's
     ``ielas_disparity``; the output against the port's CPU output of the
     same frame (0 mismatches);
-11. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
+11. LM serving: yi-9b at full width (48 layers, bfloat16, seeded weights
+    made on the card by ``LMModel.init``) through ``ServeEngine(batch=4,
+    max_len=33)``: 8 requests of 4-16 prompt tokens and 16 new tokens each,
+    every request served in range, a second ``generate`` equal, flash
+    launched once per layer per decode step and nothing else; tokens/s, the
+    decode step's median (CUDA events) and one profiled step (device busy
+    share, flash's and the matmuls' shares, and the KV expansion's, traced
+    alone at the step's shapes); wave 0 again through the kernel
+    and with the attention's kernel call swapped for the plain version (in
+    this script only): while a request's inputs are equal on both paths,
+    every token whose plain top-2 logit margin exceeds LM_MARGIN equal; the
+    first step's max |d logit|; the reduced model in float32 on the card against the port's
+    CPU run (equal tokens, logits within LM_F32_TOL); ``repro_torch.launch.serve
+    lm --device cuda`` once;
+12. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
 
 Every time is printed with the card's name and power limit.  Each profiled
 frame or wave also leaves its device-side rows, by time, in
@@ -165,12 +186,50 @@ FLASH_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (1e-5, 2.0 ** -7)}
 # Dense peaks of the H100 SXM for the flash bound: the bf16 tensor-core
 # rate and the float32 rate of the CUDA cores (NVIDIA H100 datasheet).
 FLASH_PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# Flash at the LM serving path's shapes: yi-9b (src/repro/configs/yi_9b.py)
+# after the GQA expansion, 32 heads of 128, batch 4.  Decode is one query
+# against the cache's valid prefix, full attention: (B, H, Sq, Skv, D).
+FLASH_DECODE = [(4, 32, 1, skv, 128) for skv in (1, 17, 31)]
+FLASH_PREFILL = (4, 32, 16, 16, 128)
+# A decode step at a cache length users serve (phase 11's cache holds at most
+# 33 positions): one query against 4096 keys.  Timed with the longest of
+# FLASH_DECODE, each beside two byte bounds: the kernel's (q, the expanded k
+# and v, out) and the path's (q, yi-9b's 4 KV heads' prefix unexpanded, out),
+# which a kernel reading each KV head once for its query heads could reach.
+FLASH_DECODE_LONG = (4, 32, 1, 4096, 128)
+FLASH_DECODE_TIMED = (FLASH_DECODE[-1], FLASH_DECODE_LONG)
+LM_KV_HEADS = 4           # yi-9b's KV heads: each serves 8 of the 32 query heads
 SERVICE_STREAMS = 2       # streams of the service phase
 SERVICE_FRAMES = 8        # frames per stream (seeds 0-15)
 WARM_BAND = 8             # the service's default warm band
 VIDEO_FRAMES = 5          # frames of the warm video phase
 VIDEO_CUT = 3             # its scene cut
 BASELINE_FRAMES = 4       # the hybrid baseline: one warm-up frame and three timed
+# LM serving (phase 11): yi-9b at full width, all 48 layers, bfloat16, seeded
+# weights; ServeEngine(batch=4, max_len=33) on 8 requests of 4-16 prompt
+# tokens (np.random.default_rng(0), drawn as the launcher's serve_lm draws
+# them) and 16 new tokens each.
+LM_ARCH = "yi-9b"
+LM_BATCH = 4
+LM_REQUESTS = 8
+LM_PROMPT_LEN = 16
+LM_NEW = 16
+LM_MAX_LEN = LM_PROMPT_LEN + LM_NEW + 1
+# The kernel path against the plain-attention path on the same wave.  The
+# kernel's attention outputs are within one bfloat16 ulp of the plain
+# version's (FLASH_TOL); the rest of the model is the same code on the same
+# card.  The top logits lie in [4, 8), where a bfloat16 logit moves in steps
+# of 2^-5; allowing the one-ulp differences to move the final logits by up to
+# LM_LOGIT_DELTA = 4 such steps, the greedy token can differ only where the
+# plain run's top two logits are within 2 * LM_LOGIT_DELTA.  While a
+# request's inputs are equal on both paths, every token whose plain margin
+# exceeds LM_MARGIN must be equal; so the first token that differs must come
+# at a step under it, and the tokens after it are counted, not gated.
+LM_LOGIT_DELTA = 4 * 2.0 ** -5
+LM_MARGIN = 2 * LM_LOGIT_DELTA
+# The reduced model in float32 on the card against the port's CPU run: the
+# CPU tests' tolerance for the float32 variants (tests/torch_lm_cases.py).
+LM_F32_TOL = (1e-5, 1e-5)
 
 
 def main() -> int:
@@ -286,15 +345,10 @@ def main() -> int:
         return [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
-    def kernel_ms(fn, kernel: str, reps: int) -> tuple[float, float]:
-        """(the kernel's own device time per launch from the profiler, the
-        wrapper's time per call by CUDA events over back-to-back calls).  The
-        second includes the wrapper's host work, which is longer than a small
-        kernel.  ``kernel`` is part of the kernel's symbol; a trace with no
-        device row of that name fails the run.  A trace that caught no device
-        activity at all (CUPTI now and then hands back none) is taken again,
-        up to five times."""
-        per_call = cuda_ms(fn, reps)
+    def traced_rows(fn, reps: int, what: str) -> list:
+        """The device rows of a trace of ``reps`` calls of ``fn``.  A trace
+        that caught no device activity at all (CUPTI now and then hands back
+        none) is taken again, up to five times; then the run fails."""
         for _ in range(5):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
@@ -302,8 +356,18 @@ def main() -> int:
                 torch.cuda.synchronize()
             traced = device_rows(prof)
             if traced:
-                break
-            print(f"kernel_ms: the trace of {kernel} caught no device activity; taken again")
+                return traced
+            print(f"the trace of {what} caught no device activity; taken again")
+        raise AssertionError(f"five traces of {what} caught no device activity")
+
+    def kernel_ms(fn, kernel: str, reps: int) -> tuple[float, float]:
+        """(the kernel's own device time per launch from the profiler, the
+        wrapper's time per call by CUDA events over back-to-back calls).  The
+        second includes the wrapper's host work, which is longer than a small
+        kernel.  ``kernel`` is part of the kernel's symbol; a trace with no
+        device row of that name fails the run."""
+        per_call = cuda_ms(fn, reps)
+        traced = traced_rows(fn, reps, kernel)
         rows = [r for r in traced if kernel in r[2]]
         launched = sum(r[1] for r in rows)
         if not launched:
@@ -311,6 +375,54 @@ def main() -> int:
             raise AssertionError(f"the profiler shows no device row named {kernel!r} "
                                  f"(device rows: {names})")
         return sum(r[0] for r in rows) / launched / 1e3, per_call
+
+    def traced_ms(fn, reps: int, what: str) -> tuple[float, float]:
+        """(the device time of one call of ``fn``: every device row of a trace
+        of ``reps`` calls, summed, over ``reps``; the time per call by CUDA
+        events over back-to-back calls, host work included), for the plain
+        stereo versions, whose thousands of launches a call keep the host
+        behind the device.  A trace can lose records (up to a few in 10^3
+        in these traces of 10^4-10^5 operations, and more in short traces),
+        so two traces are taken and count only when their device operations
+        agree to within one in a hundred; the fuller one gives the time.
+        Taken again up to five times, then the run fails."""
+        per_call = cuda_ms(fn, reps)
+        for _ in range(5):
+            rows = [traced_rows(fn, reps, what) for _ in range(2)]
+            ops = [sum(r[1] for r in t) for t in rows]
+            if abs(ops[0] - ops[1]) <= max(ops) // 100:
+                full = rows[ops.index(max(ops))]
+                return sum(r[0] for r in full) / reps / 1e3, per_call
+            print(f"two traces of {reps} calls of {what} hold {ops} device operations; "
+                  f"taken again")
+        raise AssertionError(f"five pairs of traces of {what} disagree")
+
+    def queued_ms(fn, reps: int, what: str) -> tuple[float, float]:
+        """(the device time of one call of ``fn``, by CUDA events around
+        ``reps`` calls queued behind a spin kernel, so that the device runs
+        them back to back with no host gap; the time per call by CUDA events
+        over back-to-back calls, host work included), for functions of a few
+        launches a call (SDPA, the plain flash, Sobel and median versions).
+        It counts only when the spin is still running after the host has
+        queued the last call; the spin is made 4x longer up to three times,
+        then the run fails."""
+        per_call = cuda_ms(fn, reps)
+        spin_ms = 2 * per_call * reps + 1.0
+        for _ in range(4):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(spin_ms * 2e6))       # cycles: ~2 GHz, so >= spin_ms
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            ahead = not start.query()
+            torch.cuda.synchronize()
+            if ahead:
+                return start.elapsed_time(end) / reps, per_call
+            spin_ms *= 4
+        raise AssertionError(f"the host never got ahead of the device on {what}")
 
     def bound(nbytes: int, ops: int) -> tuple[float, str]:
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -400,11 +512,12 @@ def main() -> int:
         b_ms, b_by = bound(nbytes, pairs * (OPS_SAD + OPS_INSERT4))
         ms, call = kernel_ms(lambda: support_kernel.support_match(rows_l, rows_r, **kw),
                              "support_match_kernel", 50)
-        plain = cuda_ms(lambda: ref.support_match_rows_streaming(rows_l, rows_r, **kw), 3)
+        plain, plain_call = traced_ms(
+            lambda: ref.support_match_rows_streaming(rows_l, rows_r, **kw), 1, "plain support")
         print(f"kernel support_match {label} rows {tuple(rows_l.shape)} D={p.num_disp}: "
               f"mismatches {mism} of {got.numel()}, max_abs_err {err}, kernel {ms:.4f} ms "
-              f"(per call {call:.4f} ms), plain {plain:.3f} ms, bound {b_ms:.5f} ms "
-              f"({b_by}; {nbytes} B, "
+              f"(per call {call:.4f} ms), plain {plain:.3f} ms device "
+              f"({plain_call:.3f} ms a call), bound {b_ms:.5f} ms ({b_by}; {nbytes} B, "
               f"{pairs} (column, d) pairs) {card}")
         if mism:
             raise AssertionError(f"support kernel disagrees with its plain version ({label})")
@@ -524,8 +637,10 @@ def main() -> int:
                                    + 2 * h * w * p.num_disp * OPS_MASK)
             ms, call = kernel_ms(lambda: dense_kernel.dense_match_stream(*args, **kw),
                                  "dense_match_stream_kernel", 20)
-            plain = cuda_ms(lambda: ref.dense_match_rows_stream_ref(*args, **kw), 3)
-            line += (f", kernel {ms:.4f} ms (per call {call:.4f} ms), plain {plain:.3f} ms, "
+            plain, plain_call = traced_ms(lambda: ref.dense_match_rows_stream_ref(*args, **kw),
+                                          1, "plain stream dense")
+            line += (f", kernel {ms:.4f} ms (per call {call:.4f} ms), plain {plain:.3f} ms "
+                     f"device ({plain_call:.3f} ms a call), "
                      f"bound {b_ms:.5f} ms ({b_by}; {nbytes} B, {cands} candidates of "
                      f"{2 * h * w * p.num_disp}; the scan's bound, a mask test per "
                      f"(pixel, d, view), {old_ms:.5f} ms, {old_by})")
@@ -552,8 +667,10 @@ def main() -> int:
                                    + 2 * h * w * c * OPS_SLOT)
             ms, call = kernel_ms(lambda: dense_kernel.dense_match_candidates(*args, **kw),
                                  "dense_match_windowed_kernel", 20)
-            plain = cuda_ms(lambda: ref.dense_match_rows_windowed_ref(*args, **kw), 3)
-            line += (f", kernel {ms:.4f} ms (per call {call:.4f} ms), plain {plain:.3f} ms, "
+            plain, plain_call = traced_ms(
+                lambda: ref.dense_match_rows_windowed_ref(*args, **kw), 1, "plain windowed dense")
+            line += (f", kernel {ms:.4f} ms (per call {call:.4f} ms), plain {plain:.3f} ms "
+                     f"device ({plain_call:.3f} ms a call), "
                      f"bound {b_ms:.5f} ms ({b_by}; {nbytes} B, {distinct} distinct in-image "
                      f"values in {inside} in-image slots of {2 * h * w * c}; the slots' "
                      f"bound, an energy per in-image slot, {old_ms:.5f} ms, {old_by})")
@@ -608,12 +725,14 @@ def main() -> int:
         nbytes = n * imgs.element_size() + 2 * n
         b_ms, b_by = bound(nbytes, n * OPS_SOBEL)
         ms, call = kernel_ms(lambda: sobel_kernel.sobel(imgs), "sobel_kernel", 50)
-        plain = cuda_ms(lambda: ref.sobel_rows_ref(*ref.edge_row_views(imgs.to(torch.int32))),
-                        10)
+        plain, plain_call = queued_ms(
+            lambda: ref.sobel_rows_ref(*ref.edge_row_views(imgs.to(torch.int32))), 10,
+            "plain sobel")
         print(f"kernel sobel {label} both views {tuple(imgs.shape)} {imgs.dtype}: mismatches "
               f"{mism} of {2 * n}, max_abs_err {err}, kernel {ms:.4f} ms (per call {call:.4f} ms, "
               f"the wrapper's host work included), plain {plain:.3f} "
-              f"ms, bound {b_ms:.5f} ms ({b_by}; {nbytes} B, {imgs.dtype} in, int8 out) {card}")
+              f"ms device ({plain_call:.3f} ms a call), bound {b_ms:.5f} ms ({b_by}; {nbytes} B, "
+              f"{imgs.dtype} in, int8 out) {card}")
         if mism:
             raise AssertionError(f"sobel kernel disagrees with its plain version ({label})")
         record("sobel", label, err, ms, plain, b_ms, b_by)
@@ -634,11 +753,13 @@ def main() -> int:
         nbytes = 8 * n
         b_ms, b_by = bound(nbytes, n * OPS_MEDIAN)
         ms, call = kernel_ms(lambda: median_kernel.median3x3(d), "median3x3_kernel", 50)
-        plain = cuda_ms(lambda: ref.median3x3_rows_ref(*ref.edge_row_views(d)), 10)
+        plain, plain_call = queued_ms(lambda: ref.median3x3_rows_ref(*ref.edge_row_views(d)), 10,
+                                      "plain median")
         print(f"kernel median3x3 {label} {tuple(d.shape)} ({invalid} invalid pixels): "
               f"mismatches {mism} of {n}, max_abs_err {err}, kernel {ms:.4f} ms (per call "
               f"{call:.4f} ms), plain "
-              f"{plain:.3f} ms, bound {b_ms:.5f} ms ({b_by}; {nbytes} B) {card}")
+              f"{plain:.3f} ms device ({plain_call:.3f} ms a call), bound {b_ms:.5f} ms ({b_by}; "
+              f"{nbytes} B) {card}")
         if mism or invalid == 0:
             raise AssertionError(f"median kernel disagrees, or no invalid pixel ({label})")
         record("median3x3", label, err, ms, plain, b_ms, b_by)
@@ -802,8 +923,9 @@ def main() -> int:
             old_ms, old_by = bound(nbytes, cands * (OPS_SAD + OPS_WARM_ENERGY))
             ms, call = kernel_ms(lambda: dense_kernel.dense_match_warm(*args, **kw),
                                  "dense_match_warm_kernel", 20)
-            plain = cuda_ms(lambda: warm_plain(args, kw), 3)
-            line += (f", kernel {ms:.4f} ms (per call {call:.4f} ms), plain {plain:.3f} ms, "
+            plain, plain_call = traced_ms(lambda: warm_plain(args, kw), 1, "plain warm dense")
+            line += (f", kernel {ms:.4f} ms (per call {call:.4f} ms), plain {plain:.3f} ms "
+                     f"device ({plain_call:.3f} ms a call), "
                      f"bound {b_ms:.5f} ms ({b_by}; {nbytes} B, {cands} in-image band "
                      f"candidates of {2 * n * p.num_disp} (pixel, d, view), {cands - shared} "
                      f"distinct SADs; a SAD per candidate: {old_ms:.5f} ms, {old_by})")
@@ -889,8 +1011,10 @@ def main() -> int:
             "flash_attention_f32_kernel"
         ms, call = kernel_ms(lambda: flash_kernel.flash_attention(q, k, v, causal=causal),
                              symbol, 5)
-        plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal), 3)
-        library = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal), 10)
+        plain, plain_call = queued_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal), 3,
+                                      "plain flash")
+        library, library_call = queued_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal), 10, "SDPA")
         # A yardstick, not a gate: how far SDPA's own output lies from the plain
         # version, under the tolerance the kernel is held to.
         sdpa = F.scaled_dot_product_attention(q, k, v, is_causal=causal).float()
@@ -899,8 +1023,9 @@ def main() -> int:
         del want, sdpa
         print(f"kernel flash_attention {label} {FLASH_SHAPE}: {over} of {got.numel()} outside "
               f"atol {atol} + rtol {rtol} x |plain|, max_abs_err {err}, kernel {ms:.4f} ms "
-              f"(per call {call:.4f} ms), plain {plain:.3f} ms, scaled_dot_product_attention "
-              f"{library:.4f} ms ({sdpa_over} of {got.numel()} outside the same tolerance), "
+              f"(per call {call:.4f} ms), plain {plain:.3f} ms device ({plain_call:.3f} ms a "
+              f"call), scaled_dot_product_attention {library:.4f} ms device ({library_call:.4f} "
+              f"ms a call; {sdpa_over} of {got.numel()} outside the same tolerance), "
               f"bound {b_ms:.5f} ms ({b_by}; {nbytes} B, {ops} flops at "
               f"{FLASH_PEAK_FLOPS[dname] / 1e12:g} TFLOP/s) {card}")
         if over:
@@ -912,9 +1037,63 @@ def main() -> int:
     flash_out = {(dtype, causal): check_flash(dtype, causal)
                  for dtype in (torch.float32, torch.bfloat16) for causal in (True, False)}
 
+    def check_flash_lm(shape, causal):
+        """The kernel against its plain version at an LM serving shape, in
+        bfloat16; at the decode shapes of FLASH_DECODE_TIMED also timed, with
+        the kernel's and the path's byte bounds and scaled_dot_product_attention's
+        device time."""
+        b, h, sq, skv, d = shape
+        gen = torch.Generator().manual_seed(1)
+        q, k, v = (torch.randn((b, h, n, d), generator=gen).to(dev, torch.bfloat16)
+                   for n in (sq, skv, skv))
+        label = f"yi-9b {'prefill' if causal else 'decode'} bfloat16 Skv={skv}"
+        got = flash_kernel.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention_ref(q, k, v, causal=causal).float()
+        torch.cuda.synchronize()
+        diff = (got.float() - want).abs()
+        atol, rtol = FLASH_TOL["bfloat16"]
+        over = int((diff > atol + rtol * want.abs()).sum())
+        err = float(diff.max())
+        line = (f"kernel flash_attention {label} {shape}: {over} of {got.numel()} outside atol "
+                f"{atol} + rtol {rtol} x |plain|, max_abs_err {err}")
+        if shape in FLASH_DECODE_TIMED:
+            nbytes = nbytes_of(q, k, v, got)
+            # the path's attention: q, out, and the prefix of LM_KV_HEADS heads
+            gqa_bytes = nbytes_of(q, got) + 2 * b * LM_KV_HEADS * skv * d * k.element_size()
+            ops = 4 * b * h * sq * skv * d
+            t_ops = ops / FLASH_PEAK_FLOPS["bfloat16"] * 1e3
+            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+            b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            gqa_ms = max(gqa_bytes / PEAK_BYTES_PER_S * 1e3, t_ops)
+            ms, call = kernel_ms(lambda: flash_kernel.flash_attention(q, k, v, causal=causal),
+                                 "flash_attention_bf16_kernel", 200)
+            plain, plain_call = queued_ms(
+                lambda: ref.flash_attention_ref(q, k, v, causal=causal), 50, "plain flash")
+            library, library_call = queued_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal), 200, "SDPA")
+            sdpa_rows = traced_rows(
+                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal), 10, "SDPA")
+            line += (f", kernel {ms:.4f} ms (per call {call:.4f} ms), plain {plain:.4f} ms "
+                     f"device ({plain_call:.4f} ms a call), scaled_dot_product_attention "
+                     f"{library:.4f} ms device ({library_call:.4f} ms a call; kernels "
+                     f"{sorted({r[2][:60] for r in sdpa_rows})}), bound {b_ms:.6f} ms ({b_by}; "
+                     f"{nbytes} B, {ops} flops); the path's bound with {LM_KV_HEADS} KV heads "
+                     f"read once {gqa_ms:.6f} ms ({gqa_bytes} B), the kernel at "
+                     f"{ms / gqa_ms:.1f}x it")
+            record("flash_attention", label, err, ms, plain, b_ms, b_by, library)
+        print(f"{line} {card}")
+        if over:
+            raise AssertionError(f"flash kernel outside its tolerance of the plain version "
+                                 f"({label})")
+
+    for shape in (*FLASH_DECODE, FLASH_DECODE_LONG):
+        check_flash_lm(shape, causal=False)
+    check_flash_lm(FLASH_PREFILL, causal=True)
+
     def trace(label, fn):
         """``fn`` once more under torch.profiler: the device's busy share of
-        its wall time and the kernels that take its device time."""
+        its wall time and the kernels that take its device time.  Returns
+        the device rows and the wall time (us)."""
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -925,7 +1104,7 @@ def main() -> int:
         busy_us = sum(r[0] for r in rows)
         if not rows:
             print(f"profile {label}: no device time in the trace (not measured) {card}")
-            return
+            return rows, wall_us
         top = "; ".join(f"{k[:48]} x{n} {t:.1f} us" for t, n, k in sorted(rows, reverse=True)[:8])
         print(f"profile {label}: {wall_us:.1f} us wall under the profiler, device "
               f"busy {busy_us:.1f} us ({100 * busy_us / wall_us:.1f}%), "
@@ -934,6 +1113,7 @@ def main() -> int:
         out_dir.mkdir(parents=True, exist_ok=True)
         table = "\n".join(f"{t:12.1f} us {n:6d} x  {k}" for t, n, k in sorted(rows, reverse=True))
         (out_dir / f"profile-{label.replace(' ', '-')}.txt").write_text(f"{card}\n{table}\n")
+        return rows, wall_us
 
     def median_of(v):
         return sorted(v)[len(v) // 2]
@@ -1358,8 +1538,223 @@ def main() -> int:
         if cpu_mism:
             raise AssertionError(f"baseline {cfg.name}: card vs CPU differ in {cpu_mism} pixels")
 
-    # ---- 11. summary -------------------------------------------------------
-    shown = {"flash_attention": "qwen2.5-32b bfloat16 causal"}
+    # ---- 11. LM serving ------------------------------------------------------
+    # The dense GQA decoder through ServeEngine: every attention of the path
+    # is a flash kernel launch (decode: one query against the cache's valid
+    # prefix), the projections and the MLP are torch matmuls.
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.models.model import LMModel, count_params
+    from repro_torch.serving import ServeEngine, decode_step
+    from repro_torch.serving import engine as engine_mod
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = LMModel(cfg).init(0)                        # on cuda:0
+    torch.cuda.synchronize()
+    print(f"lm {cfg.name}: {count_params(cfg)} parameters, {cfg.num_layers} layers (no cut), "
+          f"d_model {cfg.d_model}, {cfg.num_heads} heads ({cfg.num_kv_heads} KV) of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, seeded "
+          f"weights made on the card in {time.perf_counter() - t0:.2f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated {card}")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=rng.integers(4, LM_PROMPT_LEN + 1))
+               for _ in range(LM_REQUESTS)]
+    waves = [prompts[i:i + LM_BATCH] for i in range(0, LM_REQUESTS, LM_BATCH)]
+    steps = sum(max(len(p) + LM_NEW - 1 for p in wave) for wave in waves)
+    engine = ServeEngine(model, batch=LM_BATCH, max_len=LM_MAX_LEN)
+    engine.generate(waves[0], 2)                        # warm-up: cuBLAS, the first launches
+    torch.cuda.synchronize()
+
+    step_events = []
+
+    def timed_step(model, caches, tokens):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = decode_step(model, caches, tokens)
+        ev[1].record()
+        step_events.append(ev)
+        return out
+
+    engine_mod.decode_step = timed_step
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        outs = engine.generate(prompts, LM_NEW)         # the entry point
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        engine_mod.decode_step = decode_step
+    counts = read_counts()
+    expect = {k: cfg.num_layers * steps if k == "flash_attention" else 0 for k in launches}
+    if counts != expect:
+        raise AssertionError(f"lm: launches {counts} in {steps} decode steps, expected {expect}")
+    for k in launches:
+        launches[k] += counts[k]
+    if (len(outs) != LM_REQUESTS or any(len(o) != LM_NEW for o in outs)
+            or not all(0 <= t < cfg.vocab_size for o in outs for t in o)):
+        raise AssertionError(f"lm: requests got {[len(o) for o in outs]} tokens, or a token "
+                             f"outside the vocabulary")
+    again = engine.generate(prompts, LM_NEW)
+    if again != outs:
+        raise AssertionError("lm: a second generate gave other tokens")
+    step_ms = [a.elapsed_time(b) for a, b in step_events]
+    tokens = sum(len(o) for o in outs)
+    print(f"lm serve {cfg.name} ServeEngine(batch={LM_BATCH}, max_len={LM_MAX_LEN}): "
+          f"{LM_REQUESTS} requests, {tokens} tokens in {len(waves)} waves of {steps} decode "
+          f"steps, {wall:.3f} s wall = {tokens / wall:.2f} tokens/s; decode step median "
+          f"{median_of(step_ms):.3f} ms, min {min(step_ms):.3f}, max {max(step_ms):.3f} (CUDA "
+          f"events); flash launches {counts['flash_attention']} = {cfg.num_layers} layers x "
+          f"{steps} steps; a second generate gives the same tokens {card}")
+
+    def mid_wave_step():
+        """The caches of wave 0 after its longest prompt, then one decode step
+        (profiled): the shapes of a step in the middle of a wave."""
+        caches = model.init_caches(LM_BATCH, LM_MAX_LEN)
+        toks = torch.zeros((LM_BATCH, 1), dtype=torch.long, device=dev)
+        for _ in range(LM_PROMPT_LEN):
+            caches, _ = decode_step(model, caches, toks)
+        torch.cuda.synchronize()
+        return lambda: decode_step(model, caches, toks)
+
+    rows, wall_us = trace(f"lm {cfg.name} decode step", mid_wave_step())
+    busy = sum(r[0] for r in rows)
+    flash_us = sum(r[0] for r in rows if "flash_attention" in r[2])
+    # cuBLAS's kernels: nvjet_* on this toolkit, *gemm* / *gemv* on others
+    gemm_us = sum(r[0] for r in rows if any(w in r[2].lower() for w in
+                                            ("nvjet", "gemm", "gemv", "xmma", "cutlass")))
+    # The GQA expansion of k and v for the kernel (attention._expand_kv), one
+    # layer's traced alone at the step's shapes (the cache's valid prefix of
+    # LM_PROMPT_LEN + 1 positions), times the layers.
+    n = LM_PROMPT_LEN + 1
+    kv = [torch.zeros((LM_BATCH, LM_MAX_LEN, cfg.num_kv_heads, cfg.head_dim),
+                      dtype=torch.bfloat16, device=dev) for _ in range(2)]
+    def expand():
+        return [attention_mod._expand_kv(t[:, :n], cfg.num_heads) for t in kv]
+
+    exp_us = queued_ms(expand, 50, "the KV expansion")[0] * 1e3 * cfg.num_layers
+    # a trace only loses records: the fullest of three counts the operations
+    exp_rows = max((traced_rows(expand, 10, "the KV expansion") for _ in range(3)),
+                   key=lambda t: sum(r[1] for r in t))
+    exp_ops = sum(r[1] for r in exp_rows) // 10 * cfg.num_layers
+    del kv
+    print(f"lm profile {cfg.name} decode step (batch {LM_BATCH}, cache index "
+          f"{LM_PROMPT_LEN}): device busy {busy:.1f} us of {wall_us:.1f} us wall under the "
+          f"profiler ({100 * busy / wall_us:.1f}%; "
+          f"{100 * busy / 1e3 / median_of(step_ms):.1f}% of the median unprofiled step), "
+          f"flash {flash_us:.1f} us "
+          f"({100 * flash_us / max(busy, 1e-9):.1f}% of busy), matmuls {gemm_us:.1f} us "
+          f"({100 * gemm_us / max(busy, 1e-9):.1f}%), the KV expansion for the kernel "
+          f"{exp_us:.1f} us ({100 * exp_us / max(busy, 1e-9):.1f}%; {exp_ops} device "
+          f"operations, {cfg.num_layers} layers x one timed alone: "
+          f"{sorted({r[2][:40] for r in exp_rows})}), {sum(r[1] for r in rows)} device "
+          f"operations {card}")
+
+    # The kernel against its plain version on this path: wave 0 again, every
+    # step's logits kept, once through the kernel and once with the attention's
+    # kernel call swapped for the plain version (here only, not in the package).
+    def logged_wave():
+        log = []
+
+        @torch.inference_mode()
+        def step(model, caches, tokens):
+            logits, caches, _ = model.apply(tokens, caches=caches)
+            log.append(logits[:, -1].clone())
+            return caches, torch.argmax(logits[:, -1], dim=-1)
+
+        engine_mod.decode_step = step
+        try:
+            toks = ServeEngine(model, LM_BATCH, LM_MAX_LEN).generate(waves[0], LM_NEW)
+        finally:
+            engine_mod.decode_step = decode_step
+        return toks, torch.stack(log)                   # (steps, B, V)
+
+    k_toks, k_logits = logged_wave()
+    attention_mod.flash_attention = ref.flash_attention_ref
+    try:
+        p_toks, p_logits = logged_wave()
+    finally:
+        attention_mod.flash_attention = flash_kernel.flash_attention
+    if k_toks != outs[:LM_BATCH]:
+        raise AssertionError("lm: the logged kernel run's tokens differ from generate's")
+    held = low = after = after_equal = 0
+    first_delta = float((k_logits[0] - p_logits[0]).abs().max())
+    max_delta = 0.0
+    top2 = p_logits.topk(2, dim=-1).values
+    margins = (top2[..., 0] - top2[..., 1]).cpu()
+    for i, prompt in enumerate(waves[0]):
+        start = len(prompt) - 1                         # the step of the first new token
+        j = 0
+        while j < LM_NEW:                               # inputs equal on both paths so far
+            margin = float(margins[start + j, i])
+            max_delta = max(max_delta, float((k_logits[start + j, i]
+                                              - p_logits[start + j, i]).abs().max()))
+            if k_toks[i][j] != p_toks[i][j]:
+                if margin > LM_MARGIN:
+                    raise AssertionError(
+                        f"lm: request {i} token {j}: the kernel path gives {k_toks[i][j]}, the "
+                        f"plain path {p_toks[i][j]}, with plain top-2 margin {margin} > "
+                        f"{LM_MARGIN}")
+                break
+            held, low = held + (margin > LM_MARGIN), low + (margin <= LM_MARGIN)
+            j += 1
+        for t in range(start):                          # the prompt's steps
+            max_delta = max(max_delta, float((k_logits[t, i] - p_logits[t, i]).abs().max()))
+        after += LM_NEW - j
+        after_equal += sum(a == b for a, b in zip(k_toks[i][j:], p_toks[i][j:]))
+    print(f"lm kernel vs plain attention {cfg.name} wave 0 ({LM_BATCH} requests x {LM_NEW} "
+          f"tokens): first step max |d logit| {first_delta:.6f}, max over steps with equal "
+          f"inputs {max_delta:.6f}; while the inputs are equal, {held} tokens with plain top-2 "
+          f"margin > {LM_MARGIN} (gated) and {low} under it all equal; from each request's "
+          f"first differing token on, {after_equal} of {after} equal (not gated) {card}")
+    del k_logits, p_logits, model, engine
+    torch.cuda.empty_cache()
+
+    # The reduced model in float32 on the card against the port's CPU run.
+    cfg32 = dataclasses.replace(get_config(LM_ARCH, reduced=True), dtype="float32")
+    on_cpu = LMModel(cfg32, device="cpu").init(0)
+    on_card = LMModel(cfg32)
+    on_card.load_state_dict(on_cpu.state_dict())
+    rng = np.random.default_rng(0)
+    prompts32 = [rng.integers(0, cfg32.vocab_size, size=rng.integers(4, LM_PROMPT_LEN + 1))
+                 for _ in range(LM_REQUESTS)]
+    toks_card = ServeEngine(on_card, LM_BATCH, LM_MAX_LEN).generate(prompts32, LM_NEW)
+    toks_cpu = ServeEngine(on_cpu, LM_BATCH, LM_MAX_LEN).generate(prompts32, LM_NEW)
+    batch_toks = torch.as_tensor(np.stack([p[:4] for p in prompts32[:LM_BATCH]]))
+    atol, rtol = LM_F32_TOL
+    worst = 0.0
+    with torch.inference_mode():
+        caches = {d: m.init_caches(LM_BATCH, LM_MAX_LEN) for d, m in (("card", on_card),
+                                                                       ("cpu", on_cpu))}
+        pairs = [(on_card.apply(batch_toks)[0], on_cpu.apply(batch_toks)[0])]   # no cache
+        for t in range(batch_toks.shape[1]):                                   # decode
+            lc, caches["card"], _ = on_card.apply(batch_toks[:, t:t + 1], caches=caches["card"])
+            lh, caches["cpu"], _ = on_cpu.apply(batch_toks[:, t:t + 1], caches=caches["cpu"])
+            pairs.append((lc, lh))
+    for lc, lh in pairs:
+        lc = lc.cpu()
+        worst = max(worst, float((lc - lh).abs().max()))
+        if not torch.allclose(lc, lh, atol=atol, rtol=rtol):
+            raise AssertionError(f"lm float32 {cfg32.name}: card logits outside atol {atol} + "
+                                 f"rtol {rtol} of the CPU's")
+    print(f"lm {cfg32.name} float32: card tokens {'equal' if toks_card == toks_cpu else 'DIFFER'}"
+          f" to the CPU run's ({LM_REQUESTS} requests x {LM_NEW}); logits (no cache and 4 "
+          f"decode steps) max |card - CPU| {worst:.3g} within atol {atol} + rtol {rtol} {card}")
+    if toks_card != toks_cpu:
+        raise AssertionError(f"lm float32 {cfg32.name}: card tokens differ from the CPU's")
+
+    reset_counts()
+    rc = serve_launch.main(["lm", "--device", "cuda"])
+    counts = read_counts()
+    print(f"serve lm (repro_torch.launch.serve, yi-9b-reduced): exit {rc}, launches {counts} "
+          f"{card}")
+    if rc != 0 or counts["flash_attention"] == 0:
+        raise AssertionError("the lm serve launcher failed or launched no flash kernel")
+    for k in launches:
+        launches[k] += counts[k]
+
+    # ---- 12. summary -------------------------------------------------------
+    shown = {"flash_attention": f"yi-9b decode bfloat16 Skv={FLASH_DECODE[-1][3]}"}
     entries = []
     for kname, _, _, source, replaces in kernels:
         if launches[kname] == 0:

@@ -1,1 +1,40 @@
-"""Stereo configurations (counterpart of ``repro.configs.elas_stereo``)."""
+"""Configurations: the stereo settings (``elas_stereo``) and the LM
+architecture registry (counterpart of ``repro.configs``): ``--arch <id>`` ->
+``ModelConfig`` (full and reduced).
+
+The port runs the dense GQA decoders (every layer ``LayerKind.ATTN`` with a
+dense SwiGLU MLP).  The reference's other architectures are not ported yet:
+asking for one raises ``KeyError`` that says so (ROADMAP.md, queue 1).
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+_ARCH_MODULES = {
+    "yi-9b": "repro_torch.configs.yi_9b",
+    "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
+    "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
+}
+# The reference's architectures whose layers the port cannot run yet.
+_NOT_PORTED = (
+    "xlstm-350m", "deepseek-v2-lite-16b", "deepseek-v2-236b", "qwen2-vl-7b",
+    "gemma2-27b", "jamba-1.5-large-398b", "musicgen-large",
+)
+
+ARCH_IDS = tuple(_ARCH_MODULES)
+
+
+def get_config(arch: str, reduced: bool = False) -> ModelConfig:
+    if arch in _NOT_PORTED:
+        raise KeyError(f"arch {arch!r} is not ported yet (ROADMAP.md, queue 1); "
+                       f"ported: {sorted(_ARCH_MODULES)}")
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted((*_ARCH_MODULES, *_NOT_PORTED))}")
+    mod = importlib.import_module(_ARCH_MODULES[arch])
+    return mod.REDUCED if reduced else mod.CONFIG
+
+
+def all_configs(reduced: bool = False) -> dict[str, ModelConfig]:
+    return {a: get_config(a, reduced) for a in ARCH_IDS}

@@ -63,20 +63,8 @@ from repro_torch.core.support import (
     extract_support_grid_batched,
 )
 from repro_torch.core.tiling import TileArg, dense_route
+from repro_torch.device import resolve_device
 from repro_torch.kernels.ref import xla_sum_f32
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda:0``; raises when no CUDA device is present rather
-    than running on the host unasked."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run the "
-                "plain PyTorch versions on the host"
-            )
-        return torch.device("cuda", 0)
-    return torch.device(device)
 
 
 def _dense_priors(

@@ -1,18 +1,49 @@
-"""Serving launcher for the stereo service (counterpart of the ``stereo``
-subcommand of ``repro/launch/serve.py``; the ``lm`` subcommand waits for
-the LM stack):
+"""Serving launchers: LM generation and the continuous-batching stereo
+service (counterpart of ``repro/launch/serve.py``):
 
+  PYTHONPATH=src python -m repro_torch.launch.serve lm --arch yi-9b --reduced \\
+      --requests 4 --prompt-len 16 --max-new 24 [--device cuda]
   PYTHONPATH=src python -m repro_torch.launch.serve stereo --frames 8 --batch 4 \\
       --height 120 --width 160 [--device cuda]
+
+Both run on the first CUDA card unless ``--device`` names another (``cpu``
+runs the plain PyTorch versions).  As in the reference, ``--reduced`` is
+always on for ``lm``.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
+
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.elas_stereo import SYNTH
 from repro_torch.data.stereo import synthetic_stereo_pair
+from repro_torch.models.model import LMModel
+from repro_torch.serving.engine import ServeEngine
 from repro_torch.serving.stereo_service import StereoService
+
+
+def serve_lm(args) -> int:
+    cfg = get_config(args.arch, reduced=args.reduced)
+    model = LMModel(cfg, device=args.device).init(0)
+    engine = ServeEngine(model, batch=args.batch,
+                         max_len=args.prompt_len + args.max_new + 1)
+    rng = np.random.default_rng(0)
+    prompts = [
+        rng.integers(0, cfg.vocab_size, size=rng.integers(4, args.prompt_len + 1))
+        for _ in range(args.requests)
+    ]
+    t0 = time.monotonic()
+    outs = engine.generate(prompts, max_new_tokens=args.max_new)
+    dt = time.monotonic() - t0
+    tokens = sum(len(o) for o in outs)
+    print(f"{args.requests} requests, {tokens} tokens in {dt:.2f}s "
+          f"({tokens/dt:.1f} tok/s, {cfg.name}, device {model.device})")
+    for i, o in enumerate(outs[:4]):
+        print(f"  req{i}: {o[:12]}{'...' if len(o) > 12 else ''}")
+    return 0
 
 
 def serve_stereo(args) -> int:
@@ -51,6 +82,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     sub = ap.add_subparsers(dest="mode", required=True)
 
+    lm = sub.add_parser("lm")
+    lm.add_argument("--arch", choices=ARCH_IDS, default="yi-9b")
+    lm.add_argument("--reduced", action="store_true", default=True)
+    lm.add_argument("--requests", type=int, default=4)
+    lm.add_argument("--batch", type=int, default=2)
+    lm.add_argument("--prompt-len", type=int, default=16)
+    lm.add_argument("--max-new", type=int, default=16)
+    lm.add_argument("--device", default="cuda",
+                    help="where the model runs (default: the first CUDA card)")
+
     st = sub.add_parser("stereo")
     st.add_argument("--frames", type=int, default=8)
     st.add_argument("--batch", type=int, default=1)
@@ -60,7 +101,7 @@ def main(argv=None) -> int:
                     help="where the waves run (default: the first CUDA card)")
 
     args = ap.parse_args(argv)
-    return serve_stereo(args)
+    return serve_lm(args) if args.mode == "lm" else serve_stereo(args)
 
 
 if __name__ == "__main__":

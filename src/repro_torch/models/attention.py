@@ -1,0 +1,171 @@
+"""Attention: GQA with RoPE and a KV cache (counterpart of
+``repro/models/attention.py`` for global attention, ``LayerKind.ATTN``).
+
+Both attention computations go to the hand-written flash kernel
+(:func:`repro_torch.kernels.flash_attention.flash_attention`), which runs its
+plain version on CPU tensors and launches ``csrc/flash_attention.cu`` on CUDA
+tensors, with no fallback between the two:
+
+- a full sequence from position 0 (the forward without a cache, and prefill
+  into an empty cache; the reference's ``blockwise_attention``) is one causal
+  call;
+- decode (one query against the cache; the reference's ``decode_attention``)
+  is one call over the cache's valid prefix, ``causal=False``.
+
+The KV heads are expanded to the query heads first (the kernel has no
+grouped-query layout): KV head j serves query heads ``j*g .. j*g + g - 1``,
+as ``jnp.repeat`` on the head axis does.  The kernel takes head widths 16,
+32, 64 and 128 on the card and raises for any other.
+
+The cache holds bfloat16 whatever the model's dtype (as the reference's
+``init_caches``); a float32 model reads it back as float32 (the float32
+kernel).  Unlike the reference, the port writes new keys and values into the
+cache's buffers in place and returns a :class:`KVCache` with the advanced
+index over the same buffers.  Sliding-window attention and the attention
+softcap (gemma2) wait for a kernel that has them (ROADMAP.md, queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import common
+from repro_torch.models.config import LayerKind, ModelConfig
+
+
+@dataclasses.dataclass
+class KVCache:
+    k: torch.Tensor       # (B, Smax, KV, D)
+    v: torch.Tensor       # (B, Smax, KV, D)
+    index: int            # number of valid positions
+
+
+def attn_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """The port's matrices: the reference's (d, H, hd) projections as
+    (d, H*hd) and its (H, hd, d) output projection as (H*hd, d)."""
+    d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    shapes = {"wq": (d, h * hd), "wk": (d, kvh * hd), "wv": (d, kvh * hd), "wo": (h * hd, d)}
+    if cfg.qkv_bias:
+        shapes.update(bq=(h * hd,), bk=(kvh * hd,), bv=(kvh * hd,))
+    return shapes
+
+
+def init_attn_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
+    """float32 weights in the port's layout, drawn as the reference's: the
+    fan-in of ``wo`` (H, hd, d) is H."""
+    d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    params = {
+        "wq": common.dense_init(gen, (d, h, hd), device=device),
+        "wk": common.dense_init(gen, (d, kvh, hd), device=device),
+        "wv": common.dense_init(gen, (d, kvh, hd), device=device),
+        "wo": common.dense_init(gen, (h, hd, d), device=device),
+    }
+    if cfg.qkv_bias:
+        for name, n in (("bq", h), ("bk", kvh), ("bv", kvh)):
+            params[name] = torch.zeros((n, hd), dtype=torch.float32, device=device)
+    shapes = attn_shapes(cfg)
+    return {name: w.reshape(shapes[name]) for name, w in params.items()}
+
+
+def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig):
+    b, s, _ = x.shape
+    q, k, v = x @ params["wq"], x @ params["wk"], x @ params["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    hd = cfg.head_dim
+    return (q.view(b, s, cfg.num_heads, hd), k.view(b, s, cfg.num_kv_heads, hd),
+            v.view(b, s, cfg.num_kv_heads, hd))
+
+
+def _apply_pos(q, k, positions, cfg: ModelConfig):
+    if cfg.pos_embedding == "rope":
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        k = common.apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.pos_embedding != "none":
+        raise NotImplementedError(f"{cfg.pos_embedding!r} positions are not ported yet "
+                                  f"(ROADMAP.md, queue 1)")
+    return q, k
+
+
+def _expand_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, S, KV, D) -> (B, H, S, D), contiguous: KV head j serves query
+    heads j*g .. j*g + g - 1 (``jnp.repeat`` on the head axis)."""
+    k = k.transpose(1, 2)
+    kvh = k.shape[1]
+    if kvh == num_heads:
+        return k.contiguous()
+    return k.repeat_interleave(num_heads // kvh, dim=1)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
+    """q (B, Sq, H, D), k and v (B, Skv, KV, D) in q's dtype -> (B, Sq, H, D)
+    through the flash kernel."""
+    h = q.shape[2]
+    out = flash_attention(q.transpose(1, 2), _expand_kv(k, h), _expand_kv(v, h), causal=causal)
+    return out.transpose(1, 2)
+
+
+def cache_insert(buf: torch.Tensor, new: torch.Tensor, idx: int) -> torch.Tensor:
+    """Write ``new`` (B, S_new, ...) into ``buf`` (B, S, ...) at ``idx``, in
+    place, cast to the buffer's dtype."""
+    if idx + new.shape[1] > buf.shape[1]:
+        raise ValueError(f"cache of {buf.shape[1]} positions cannot take {new.shape[1]} "
+                         f"at index {idx}")
+    buf[:, idx:idx + new.shape[1]] = new.to(buf.dtype)
+    return buf
+
+
+def attention_block(
+    params,
+    x: torch.Tensor,              # (B, S, D)
+    positions: torch.Tensor,      # (B, S)
+    cfg: ModelConfig,
+    kind: LayerKind,
+    cache: Optional[KVCache] = None,
+) -> tuple[torch.Tensor, Optional[KVCache]]:
+    """Self-attention with optional cache. Returns (out, updated_cache)."""
+    if kind != LayerKind.ATTN or cfg.attn_softcap > 0.0:
+        raise NotImplementedError(f"{kind.value} attention with softcap {cfg.attn_softcap} is "
+                                  f"not ported yet (ROADMAP.md, queue 1)")
+    q, k, v = _project_qkv(params, x, cfg)
+    q, k = _apply_pos(q, k, positions, cfg)
+    b, s = x.shape[:2]
+
+    if cache is None:
+        out = _attend(q, k, v, causal=True)
+        new_cache = None
+    elif s == 1:
+        # decode: insert the token at cache.index, attend over the valid prefix.
+        n = cache.index + 1
+        cache_insert(cache.k, k, cache.index)
+        cache_insert(cache.v, v, cache.index)
+        out = _attend(q, cache.k[:, :n].to(q.dtype), cache.v[:, :n].to(q.dtype), causal=False)
+        new_cache = KVCache(k=cache.k, v=cache.v, index=n)
+    elif cache.index == 0:
+        # prefill into an empty cache.
+        cache_insert(cache.k, k, 0)
+        cache_insert(cache.v, v, 0)
+        out = _attend(q, k, v, causal=True)
+        new_cache = KVCache(k=cache.k, v=cache.v, index=s)
+    else:
+        # The reference's prefill at index > 0 attends over the new tokens
+        # only and counts their key positions from 0 (attention.py:334-352);
+        # no caller of the reference reaches it, and the port does not
+        # reproduce it.
+        raise NotImplementedError(
+            f"prefill of {s} tokens into a cache at index {cache.index}: the reference "
+            f"attends over the new tokens only, counting key positions from 0 "
+            f"(ROADMAP.md, queue 3)")
+
+    out = out.reshape(b, s, cfg.num_heads * cfg.head_dim) @ params["wo"]
+    return out, new_cache
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+                  device=None) -> KVCache:
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device), index=0)

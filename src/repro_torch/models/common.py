@@ -1,0 +1,76 @@
+"""Shared model primitives: norms, rotary embeddings, softcap and the
+initialisers (counterpart of ``repro/models/common.py``).
+
+The reference's ``with_logical`` attaches a sharding hint that is a no-op on
+one device, so the port has none.  ``apply_mrope`` and
+``sinusoidal_embedding`` wait for qwen2-vl and musicgen (ROADMAP.md,
+queue 1).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+# --------------------------------------------------------------------------
+# norms / activations
+# --------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in float32, scaled by ``1 + scale``, in x's dtype."""
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale.float())).to(dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """gemma2 logit soft-capping: cap * tanh(x / cap)."""
+    if cap <= 0.0:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# --------------------------------------------------------------------------
+# position embeddings
+# --------------------------------------------------------------------------
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """(head_dim//2,) float32 inverse frequencies."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(
+    x: torch.Tensor,              # (B, S, H, D)
+    positions: torch.Tensor,      # (B, S) integer
+    theta: float,
+) -> torch.Tensor:
+    """Rotary embedding on the two halves of the head (not interleaved
+    pairs), in float32, in x's dtype."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)          # (D/2,)
+    angles = positions[..., None].float() * freqs                  # (B, S, D/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# initialisers
+# --------------------------------------------------------------------------
+def dense_init(gen: torch.Generator, shape: tuple[int, ...], in_axis: int = 0,
+               device=None) -> torch.Tensor:
+    """Truncated-normal fan-in init in float32: std ``1/sqrt(shape[in_axis])``
+    (for ``wo`` of shape (H, hd, d) that is H, as in the reference),
+    truncated at three standard deviations."""
+    std = 1.0 / math.sqrt(shape[in_axis])
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(out, 0.0, 1.0, -3.0, 3.0, generator=gen)
+    return out.mul_(std)
+
+
+def embed_init(gen: torch.Generator, shape: tuple[int, ...], device=None) -> torch.Tensor:
+    """Unit normal in float32."""
+    return torch.randn(shape, generator=gen, dtype=torch.float32, device=device)

@@ -1,0 +1,39 @@
+"""Dense MLP variants: SwiGLU (llama-family), GeGLU (gemma2), plain GELU
+(counterpart of ``repro/models/mlp.py``; the same matrices, (in, out))."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import common
+
+
+def mlp_shapes(d_model: int, d_ff: int, act: str) -> dict[str, tuple[int, ...]]:
+    if act == "gelu_mlp":                      # plain 2-layer MLP (musicgen)
+        return {"w_in": (d_model, d_ff), "w_out": (d_ff, d_model)}
+    return {                                   # gated: SwiGLU / GeGLU
+        "w_gate": (d_model, d_ff),
+        "w_up": (d_model, d_ff),
+        "w_down": (d_ff, d_model),
+    }
+
+
+def init_mlp_params(gen: torch.Generator, d_model: int, d_ff: int, act: str,
+                    device=None) -> dict[str, torch.Tensor]:
+    """float32 weights drawn as the reference's (fan-in truncated normal)."""
+    return {name: common.dense_init(gen, shape, device=device)
+            for name, shape in mlp_shapes(d_model, d_ff, act).items()}
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")       # jax.nn.gelu's default
+
+
+def mlp_block(params, x: torch.Tensor, act: str) -> torch.Tensor:
+    """``params`` maps names to matrices in x's dtype."""
+    if act == "gelu_mlp":
+        return _gelu(x @ params["w_in"]) @ params["w_out"]
+    gate = x @ params["w_gate"]
+    up = x @ params["w_up"]
+    act_fn = F.silu if act == "silu" else _gelu
+    return (act_fn(gate) * up) @ params["w_down"]

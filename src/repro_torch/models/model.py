@@ -1,0 +1,201 @@
+"""LMModel: the dense GQA decoder (counterpart of ``repro/models/model.py``
+for architectures made only of ``LayerKind.ATTN`` layers with a dense MLP:
+yi, qwen2.5, mistral-large).
+
+Each layer is RMSNorm -> GQA attention -> residual; RMSNorm -> MLP ->
+residual.  The layers are
+a ``ModuleList``, run one after another (the reference scans over stacked
+units).  The weights are held in ``cfg.dtype``, cast once (the reference
+keeps float32 and casts at every use, which gives the same values); the
+RMSNorm scales stay float32.  ``ATTN_LOCAL``, ``MLA``, ``MAMBA``, ``MLSTM``,
+``SLSTM``, MoE layers, the stub frontends and gemma2's options (softcaps,
+post-block norms, tied embeddings) raise ``NotImplementedError`` (ROADMAP.md,
+queue 1); ``loss`` waits for the training slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention, common
+from repro_torch.models.config import LayerKind, ModelConfig
+from repro_torch.models.mlp import init_mlp_params, mlp_block, mlp_shapes
+
+Caches = list  # one attention.KVCache per layer
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    for i, kind in enumerate(cfg.layer_kinds):
+        if kind != LayerKind.ATTN:
+            raise NotImplementedError(f"{cfg.name}: layer {i} is {kind.value}; the port runs "
+                                      f"attn layers only (ROADMAP.md, queue 1)")
+    for what, unported in (("MoE layers", cfg.moe is not None),
+                           (f"the {cfg.frontend} frontend", cfg.frontend != "none"),
+                           ("the attention softcap", cfg.attn_softcap > 0.0),
+                           ("the logit softcap", cfg.logit_softcap > 0.0),
+                           ("post-block norms", cfg.post_block_norm),
+                           ("tied embeddings", cfg.tie_embeddings),
+                           (f"{cfg.pos_embedding} positions",
+                            cfg.pos_embedding not in ("rope", "none"))):
+        if unported:
+            raise NotImplementedError(f"{cfg.name}: {what} are not ported yet "
+                                      f"(ROADMAP.md, queue 1)")
+
+
+class AttnLayer(nn.Module):
+    """One ``LayerKind.ATTN`` layer's weights."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        self.norm_attn = _param((d,), torch.float32, device)
+        self.attn = nn.ParameterDict({name: _param(shape, dtype, device)
+                                      for name, shape in attention.attn_shapes(cfg).items()})
+        self.norm_mlp = _param((d,), torch.float32, device)
+        self.mlp = nn.ParameterDict({name: _param(shape, dtype, device)
+                                     for name, shape in mlp_shapes(d, cfg.d_ff,
+                                                                   cfg.mlp_act).items()})
+
+
+def _apply_layer(layer: AttnLayer, x: torch.Tensor, positions: torch.Tensor,
+                 cfg: ModelConfig, cache: Optional[attention.KVCache]):
+    """Returns (x, new_cache)."""
+    eps = cfg.norm_eps
+    h = common.rms_norm(x, layer.norm_attn, eps)
+    h, new_cache = attention.attention_block(layer.attn, h, positions, cfg, LayerKind.ATTN,
+                                             cache)
+    x = x + h
+    h = mlp_block(layer.mlp, common.rms_norm(x, layer.norm_mlp, eps), cfg.mlp_act)
+    return x + h, new_cache
+
+
+class LMModel(nn.Module):
+    """The decoder on ``device`` (``None``: ``cuda:0``, raising without a
+    card; ``"meta"`` builds the shapes only).  The weights are allocated
+    uninitialised: call :meth:`init` or ``load_state_dict``.
+
+    :meth:`apply` keeps the reference's name and so replaces
+    ``nn.Module.apply(fn)``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        _check_ported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = getattr(torch, cfg.dtype)
+        d, vocab = cfg.d_model, cfg.vocab_size
+        self.embed = _param((vocab, d), self.dtype, self.device)
+        self.final_norm = _param((d,), torch.float32, self.device)
+        self.lm_head = _param((d, vocab), self.dtype, self.device)
+        self.layers = nn.ModuleList(AttnLayer(cfg, self.dtype, self.device)
+                                    for _ in range(cfg.num_layers))
+
+    # ---------------- init ------------------------------------------------
+    @torch.no_grad()
+    def init(self, seed: int) -> "LMModel":
+        """Seeded weights with the reference's distributions (unit-normal
+        embedding, fan-in truncated normals, zero norm scales and biases),
+        drawn on the model's device from a ``torch.Generator``: other numbers
+        than ``jax.random`` gives for the same seed."""
+        cfg, dev = self.cfg, self.device
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        self.embed.copy_(common.embed_init(gen, tuple(self.embed.shape), device=dev))
+        self.final_norm.zero_()
+        self.lm_head.copy_(common.dense_init(gen, (cfg.d_model, cfg.vocab_size), device=dev))
+        for layer in self.layers:
+            for name, w in attention.init_attn_params(gen, cfg, dev).items():
+                layer.attn[name].copy_(w)
+            for name, w in init_mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act,
+                                           dev).items():
+                layer.mlp[name].copy_(w)
+            for name, p in layer.named_parameters(recurse=False):
+                p.zero_()                              # the RMSNorm scales
+        return self
+
+    # ---------------- forward ----------------------------------------------
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = common.rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return (x @ self.lm_head).float()
+
+    def apply(
+        self,
+        inputs,                                        # (B, S) token ids
+        positions: Optional[torch.Tensor] = None,
+        caches: Optional[Caches] = None,
+    ) -> tuple[torch.Tensor, Optional[Caches], dict]:
+        """Returns (logits (B, S, V) float32, new_caches, aux).  ``aux`` holds
+        the reference's MoE terms, all zero here."""
+        cfg = self.cfg
+        inputs = torch.as_tensor(inputs, device=self.device)
+        b, s = inputs.shape[:2]
+        if positions is None:
+            start = 0 if caches is None else caches[0].index
+            positions = (start + torch.arange(s, device=self.device)).expand(b, s)
+        x = self.embed[inputs.long()]
+        new_caches = None if caches is None else []
+        for i, layer in enumerate(self.layers):
+            x, cache = _apply_layer(layer, x, positions, cfg,
+                                    None if caches is None else caches[i])
+            if caches is not None:
+                new_caches.append(cache)
+        aux = {"aux_loss": 0.0, "z_loss": 0.0, "fraction_dropped": 0.0}
+        return self._logits(x), new_caches, aux
+
+    # ---------------- caches -------------------------------------------------
+    def init_caches(self, batch: int, max_len: int, dtype=torch.bfloat16) -> Caches:
+        return [attention.init_kv_cache(self.cfg, batch, max_len, dtype, self.device)
+                for _ in self.layers]
+
+
+# --------------------------------------------------------------------------
+# the reference's weights, and parameter counting
+# --------------------------------------------------------------------------
+def _flatten(node: Any, prefix: str, out: dict) -> dict:
+    if isinstance(node, dict):
+        for key, child in node.items():
+            _flatten(child, f"{prefix}{key}.", out)
+    else:
+        out[prefix[:-1]] = node
+    return out
+
+
+def _unit_slice(node: Any, u: int) -> Any:
+    if isinstance(node, dict):
+        return {key: _unit_slice(child, u) for key, child in node.items()}
+    return node[u]
+
+
+def params_from_reference(cfg: ModelConfig, tree: dict) -> dict[str, torch.Tensor]:
+    """The reference's parameter pytree (``jax.tree.map(np.asarray,
+    model.init(key))``) as the port's float32 state dict, for
+    ``load_state_dict`` (which casts to the model's dtype): ``units`` unstacked
+    into one entry per layer, the projections reshaped to the port's
+    matrices."""
+    shapes = {k: v.shape for k, v in LMModel(cfg, device="meta").state_dict().items()}
+    flat = _flatten({k: v for k, v in tree.items() if k not in ("prefix", "units")}, "", {})
+    layers = list(tree["prefix"]) + [_unit_slice(unit, u) for u in range(cfg.num_units)
+                                     for unit in tree["units"]]
+    for i, layer in enumerate(layers):
+        _flatten(layer, f"layers.{i}.", flat)
+    if flat.keys() != shapes.keys():
+        raise ValueError(f"reference tree does not fit {cfg.name}: extra "
+                         f"{sorted(flat.keys() - shapes.keys())}, missing "
+                         f"{sorted(shapes.keys() - flat.keys())}")
+    return {k: torch.from_numpy(np.array(flat[k], np.float32)).reshape(shape)
+            for k, shape in shapes.items()}
+
+
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Total parameters, as the reference counts them.  ``active_only``
+    differs from the total only for MoE configs, which the port does not
+    build yet (LMModel raises for them)."""
+    del active_only
+    return sum(p.numel() for p in LMModel(cfg, device="meta").parameters())

@@ -1,6 +1,7 @@
-"""Stereo serving engine with temporal warm start (counterpart of
-``repro.serving``; the LM engine is not ported yet)."""
+"""Stereo serving engine with temporal warm start, and the LM wave engine
+(counterpart of ``repro.serving``)."""
 from repro_torch.serving.admission import AdmissionController  # noqa: F401
+from repro_torch.serving.engine import Request, ServeEngine, decode_step  # noqa: F401
 from repro_torch.serving.faults import (  # noqa: F401
     FaultInjected,
     FaultPlan,

@@ -132,6 +132,9 @@ ON_CARD_SHAPES = [
     (2, 1, 1, 1, 32),
     (1, 1, 129, 257, 16),
     (4, 40, 256, 256, 128),      # B * H = 160 blocks a query tile, over the 132 SMs
+    (4, 32, 1, 17, 128),         # decode: one query against a cache prefix (yi-9b)
+    (4, 32, 1, 31, 128),
+    (2, 8, 1, 9, 16),
 ]
 
 

@@ -46,6 +46,23 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+def test_lm_model_leaves_the_stereo_stack_unloaded():
+    """The LM model needs only the flash kernel and the device helper, not
+    the stereo pipeline (nor scipy, which its triangulation loads)."""
+    code = (
+        "import sys\n"
+        "import repro_torch.models\n"
+        "bad = sorted(m for m in sys.modules if m.startswith(('repro_torch.core', "
+        "'repro_torch.serving', 'scipy')))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_import_leaves_jax_unloaded():
     code = (
         "import sys\n"
@@ -56,7 +73,9 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.core.tiling, repro_torch.configs.elas_stereo, repro_torch.data.stereo, "
         "repro_torch.runtime.fault_tolerance, repro_torch.serving, "
         "repro_torch.serving.stereo_service, repro_torch.serving.warmstart, "
-        "repro_torch.launch.serve\n"
+        "repro_torch.launch.serve, repro_torch.configs, repro_torch.models, "
+        "repro_torch.models.model, repro_torch.models.attention, repro_torch.models.mlp, "
+        "repro_torch.models.common, repro_torch.serving.engine, repro_torch.device\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
