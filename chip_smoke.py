@@ -41,7 +41,16 @@ Phases (any failure exits nonzero):
     flash in bfloat16 at yi-9b's serving shapes (decode: B=4, H=32, one query
     against 1, 17, 31 and 4096 keys, full; prefill-shaped 16 x 16, causal),
     the decode shapes of 31 and 4096 keys timed with the kernel's byte bound,
-    the path's (yi-9b's 4 KV heads read once) and SDPA's time;
+    the path's (yi-9b's 4 KV heads read once) and SDPA's time; flash in
+    bfloat16 at gemma2-27b's shapes with its softcap of 50 (q scaled so that
+    scores span about +-150): decode (4, 32, 1, 31, 128), full; prefill-shaped
+    (1, 32, 8192, 8192, 128), causal, with the local layers' window of 4096
+    and without (the global layers), each timed with the bound over its
+    visible pairs, the plain version's device time and a compiled
+    ``flex_attention``'s (softcap score_mod, window block mask: a yardstick;
+    its failure to compile is printed, not raised); and the options' edge
+    cases at S = 640 in bfloat16 and float32 (windows 100 and 4097, with and
+    without the softcap, the softcap alone);
  4. single frame: ``ielas_disparity`` for elas-kitti and elas-tsukuba, one
     warm-up frame and five timed frames each, with the support, stream,
     Sobel and median launch counts rising by one per frame; per-stage and
@@ -94,16 +103,24 @@ Phases (any failure exits nonzero):
     max_len=33)``: 8 requests of 4-16 prompt tokens and 16 new tokens each,
     every request served in range, a second ``generate`` equal, flash
     launched once per layer per decode step and nothing else; tokens/s, the
-    decode step's median (CUDA events) and one profiled step (device busy
-    share, flash's and the matmuls' shares, and the KV expansion's, traced
-    alone at the step's shapes); wave 0 again through the kernel
-    and with the attention's kernel call swapped for the plain version (in
-    this script only): while a request's inputs are equal on both paths,
-    every token whose plain top-2 logit margin exceeds LM_MARGIN equal; the
-    first step's max |d logit|; the reduced model in float32 on the card against the port's
-    CPU run (equal tokens, logits within LM_F32_TOL); ``repro_torch.launch.serve
+    decode step's median (CUDA events), memory allocated and one profiled
+    step (device busy share, flash's and the matmuls' shares, and the KV
+    expansion's, traced alone at the step's shapes); wave 0 again through
+    the kernel and with the attention's kernel call swapped for the plain
+    version (in this script only): with equal inputs on both paths the
+    logits within LM_LOGIT_ULPS bfloat16 steps of the binade of the largest
+    second-best logit (delta), and every token whose plain top-2 logit margin
+    exceeds 2 * delta equal; the reduced model in float32 on the card against the port's CPU
+    run (equal tokens; logits within LM_F32_TOL over LM_F32_STEPS tokens
+    without a cache and through float32 caches); ``repro_torch.launch.serve
     lm --device cuda`` once;
-12. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
+12. the same for gemma2-27b at full width (46 layers alternating a 4096
+    sliding window and global attention, softcaps 50 and 30, post-block
+    norms, tied embeddings; 27,227,128,320 parameters, ~50.7 GiB in
+    bfloat16), made after phase 11's model is freed; its logit cap rounds
+    nearly every greedy token's top logits to a tie at 30.0, so the kernel
+    path is held to the plain path by the logits before the cap;
+13. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
 
 Every time is printed with the card's name and power limit.  Each profiled
 frame or wave also leaves its device-side rows, by time, in
@@ -113,8 +130,11 @@ nothing of JAX and nothing of the reference package ``repro``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import hashlib
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -199,17 +219,39 @@ FLASH_PREFILL = (4, 32, 16, 16, 128)
 FLASH_DECODE_LONG = (4, 32, 1, 4096, 128)
 FLASH_DECODE_TIMED = (FLASH_DECODE[-1], FLASH_DECODE_LONG)
 LM_KV_HEADS = 4           # yi-9b's KV heads: each serves 8 of the 32 query heads
+# Flash at gemma2-27b's shapes (src/repro/configs/gemma2_27b.py: 32 query
+# heads of 128 after the GQA expansion of its 16 KV heads, a score softcap of
+# 50 on every layer, a sliding window of 4096 on every other).  Decode is
+# full attention over the smoke's longest cache prefix; prefill-shaped is
+# causal over 8192 positions, the local layers' window and the global
+# layers' whole triangle.  The plain version's float32 scores at 8192 take
+# 8.6 GB each (~35 GB at its peak), so these run before any model is loaded.
+GEMMA2_SOFTCAP = 50.0
+GEMMA2_WINDOW = 4096
+GEMMA2_KV_HEADS = 16
+FLASH_GEMMA2_DECODE = (4, 32, 1, 31, 128)
+FLASH_GEMMA2_PREFILL = (1, 32, 8192, 8192, 128)
+# q scaled by 30: scaled scores of std 30 span about +-150 over 8192 keys, so
+# the cap of 50 bites (the seeded model's scores are near N(0, 1), where it
+# never would).
+FLASH_CAP_Q_SCALE = 30.0
+# The options' edge cases at S = 640 (five query tiles), bfloat16 and
+# float32: (window, softcap), a window inside a key tile and one wider than
+# the keys, each with and without the softcap, and the softcap alone.
+FLASH_GEMMA2_EDGE_S = 640
+FLASH_GEMMA2_EDGES = [(100, GEMMA2_SOFTCAP), (4097, GEMMA2_SOFTCAP), (0, GEMMA2_SOFTCAP),
+                      (100, 0.0), (4097, 0.0)]
 SERVICE_STREAMS = 2       # streams of the service phase
 SERVICE_FRAMES = 8        # frames per stream (seeds 0-15)
 WARM_BAND = 8             # the service's default warm band
 VIDEO_FRAMES = 5          # frames of the warm video phase
 VIDEO_CUT = 3             # its scene cut
 BASELINE_FRAMES = 4       # the hybrid baseline: one warm-up frame and three timed
-# LM serving (phase 11): yi-9b at full width, all 48 layers, bfloat16, seeded
-# weights; ServeEngine(batch=4, max_len=33) on 8 requests of 4-16 prompt
-# tokens (np.random.default_rng(0), drawn as the launcher's serve_lm draws
-# them) and 16 new tokens each.
-LM_ARCH = "yi-9b"
+# LM serving (phases 11 and 12): yi-9b, then gemma2-27b, each at full width,
+# all layers, bfloat16, seeded weights; ServeEngine(batch=4, max_len=33) on 8
+# requests of 4-16 prompt tokens (np.random.default_rng(0), drawn as the
+# launcher's serve_lm draws them) and 16 new tokens each.
+LM_ARCHS = ("yi-9b", "gemma2-27b")
 LM_BATCH = 4
 LM_REQUESTS = 8
 LM_PROMPT_LEN = 16
@@ -218,21 +260,42 @@ LM_MAX_LEN = LM_PROMPT_LEN + LM_NEW + 1
 # The kernel path against the plain-attention path on the same wave.  The
 # kernel's attention outputs are within one bfloat16 ulp of the plain
 # version's (FLASH_TOL); the rest of the model is the same code on the same
-# card.  The top logits lie in [4, 8), where a bfloat16 logit moves in steps
-# of 2^-5; allowing the one-ulp differences to move the final logits by up to
-# LM_LOGIT_DELTA = 4 such steps, the greedy token can differ only where the
-# plain run's top two logits are within 2 * LM_LOGIT_DELTA.  While a
-# request's inputs are equal on both paths, every token whose plain margin
-# exceeds LM_MARGIN must be equal; so the first token that differs must come
-# at a step under it, and the tokens after it are counted, not gated.
-LM_LOGIT_DELTA = 4 * 2.0 ** -5
-LM_MARGIN = 2 * LM_LOGIT_DELTA
+# card.  The head's output is bfloat16, so a logit moves in steps of one
+# bfloat16 ulp of its binade: allowing the one-ulp differences to move the
+# logits before any softcap by up to LM_LOGIT_ULPS such steps of the binade
+# of the largest second-best logit of the wave's steps (delta), every step
+# with equal inputs on both paths must keep its logits within delta.  yi-9b's
+# top logits lie in [4, 8): steps of 2^-5, delta 0.125.  The second-best,
+# not the best: gemma2-27b's seeded residual stream is ~sqrt(d_model) = 68
+# times the input token's embedding, so that token's own tied logit is
+# ~d_model = 4608, 13 times any other, whose 4 steps (128) would bound
+# nothing; its other pre-cap logits (unit-normal rows against the normed
+# state, std ~68) reach ~350, in [256, 512): steps of 2, delta 8.  A
+# softcap moves no logit further (its slope is at most 1), so the greedy
+# token can differ only where the plain run's top two (capped) logits are
+# within 2 * delta: while a request's inputs are equal on both paths, every
+# token whose plain margin exceeds 2 * delta must be equal; so the first
+# token that differs must come at a step under it, and the tokens after it
+# are counted, not gated.  gemma2's cap of 30 rounds every logit above ~270
+# (about 4 sigma) to 30.0f, so nearly every greedy token is a tie broken by
+# index and its margin is 0: there the pre-cap logits carry the check.
+LM_LOGIT_ULPS = 4
+# The reduced models in float32 on the card against the port's CPU run, over
+# this many tokens (past gemma2-27b-reduced's window of 16), without a cache
+# and through float32 caches (a bfloat16 cache can round a float32 key that
+# differs in its last bit to another value; tests/test_torch_gemma2.py).
+LM_F32_STEPS = 24
 # The reduced model in float32 on the card against the port's CPU run: the
 # CPU tests' tolerance for the float32 variants (tests/torch_lm_cases.py).
 LM_F32_TOL = (1e-5, 1e-5)
 
 
 def main() -> int:
+    # torch.compile (phase 3's flex_attention yardstick) compiles in this
+    # process and caches under build/, not in the user's home or temp dir.
+    os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(ROOT / "build" / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     import torch
 
     if not torch.cuda.is_available():
@@ -1090,6 +1153,135 @@ def main() -> int:
         check_flash_lm(shape, causal=False)
     check_flash_lm(FLASH_PREFILL, causal=True)
 
+    def visible_pairs(sq, skv, causal, window) -> int:
+        """(query, key) pairs a head computes: row i sees min(i + 1, window)
+        keys when causal (Sq <= Skv), all Skv otherwise."""
+        if not causal:
+            return sq * skv
+        return int(np.minimum(np.arange(1, sq + 1), window or sq).sum())
+
+    def flex_yardstick(q, k, v, causal, window, softcap, want, atol, rtol):
+        """torch.nn.attention.flex_attention, compiled, with the softcap as a
+        score_mod and the causal window as a block mask: one PyTorch call of
+        the same function, timed beside the kernel as a yardstick only (the
+        port never calls it).  Returns (its device ms a call, its outputs
+        outside the tolerance, a note); (None, None, the error's first line)
+        where it does not compile or run."""
+        try:
+            from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+            def score_mod(score, b, h, qi, ki):
+                return softcap * torch.tanh(score / softcap)
+
+            def mask_mod(b, h, qi, ki):
+                ok = ki <= qi
+                return ok & (qi - ki < window) if window else ok
+
+            mask = (create_block_mask(mask_mod, None, None, q.shape[2], k.shape[2], device=dev)
+                    if causal else None)
+            fn = torch.compile(flex_attention)
+            t0 = time.perf_counter()
+            out = fn(q, k, v, score_mod=score_mod, block_mask=mask).float()
+            torch.cuda.synchronize()
+            note = f"compiled and run in {time.perf_counter() - t0:.1f} s"
+        except Exception as e:                          # a yardstick: reported, not a phase
+            first = (str(e).strip().splitlines() or [repr(e)])[0]
+            return None, None, f"flex_attention failed: {type(e).__name__}: {first[:200]}"
+        outside = int(((out - want).abs() > atol + rtol * want.abs()).sum())
+        del out
+        ms, _ = queued_ms(lambda: fn(q, k, v, score_mod=score_mod, block_mask=mask), 10,
+                          "flex_attention")
+        return ms, outside, note
+
+    def check_flash_gemma2(shape, causal, window, label):
+        """The kernel with gemma2's softcap (and window) against its plain
+        version in bfloat16, q scaled so that the cap bites; timed, with the
+        bound over the visible pairs, the plain version's and flex_attention's
+        device time.  Decode also prints the path's byte bound with gemma2's
+        16 KV heads read once."""
+        b, h, sq, skv, d = shape
+        gen = torch.Generator().manual_seed(2)
+        q, k, v = (torch.randn((b, h, n, d), generator=gen).mul_(s).to(dev, torch.bfloat16)
+                   for n, s in ((sq, FLASH_CAP_Q_SCALE), (skv, 1.0), (skv, 1.0)))
+        opts = dict(causal=causal, window=window, softcap=GEMMA2_SOFTCAP)
+        got = flash_kernel.flash_attention(q, k, v, **opts)
+        want = ref.flash_attention_ref(q, k, v, **opts).float()
+        torch.cuda.synchronize()
+        atol, rtol = FLASH_TOL["bfloat16"]
+        diff = (got.float() - want).abs()
+        over = int((diff > atol + rtol * want.abs()).sum())
+        err = float(diff.max())
+        del diff
+        scores = float((q[0, 0, -256:].float() @ k[0, 0].float().T).abs().max()) / d ** 0.5
+        pairs = visible_pairs(sq, skv, causal, window)
+        ops = 4 * b * h * pairs * d
+        nbytes = nbytes_of(q, k, v, got)
+        t_ops = ops / FLASH_PEAK_FLOPS["bfloat16"] * 1e3
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        reps = 200 if sq == 1 else 5
+        ms, call = kernel_ms(lambda: flash_kernel.flash_attention(q, k, v, **opts),
+                             "flash_attention_bf16_kernel", reps)
+        plain, plain_call = queued_ms(lambda: ref.flash_attention_ref(q, k, v, **opts),
+                                      50 if sq == 1 else 3, "plain flash")
+        library, lib_over, note = flex_yardstick(q, k, v, causal, window, GEMMA2_SOFTCAP, want,
+                                                 atol, rtol)
+        line = (f"kernel flash_attention {label} {shape} causal={causal} window={window} "
+                f"softcap={GEMMA2_SOFTCAP} (|scaled score| up to {scores:.1f}): {over} of "
+                f"{got.numel()} outside atol {atol} + rtol {rtol} x |plain|, max_abs_err {err}, "
+                f"kernel {ms:.4f} ms (per call {call:.4f} ms), plain {plain:.4f} ms device "
+                f"({plain_call:.4f} ms a call), flex_attention "
+                + (f"{library:.4f} ms device ({lib_over} of {got.numel()} outside the same "
+                   f"tolerance; {note})" if library is not None else f"not measured ({note})")
+                + f", bound {b_ms:.6f} ms ({b_by}; {pairs} visible pairs a head, {ops} flops, "
+                f"{nbytes} B)")
+        if sq == 1:
+            gqa_bytes = nbytes_of(q, got) + 2 * b * GEMMA2_KV_HEADS * skv * d * k.element_size()
+            gqa_ms = max(gqa_bytes / PEAK_BYTES_PER_S * 1e3, t_ops)
+            line += (f"; the path's bound with {GEMMA2_KV_HEADS} KV heads read once "
+                     f"{gqa_ms:.6f} ms ({gqa_bytes} B), the kernel at {ms / gqa_ms:.1f}x it")
+        print(f"{line} {card}")
+        if over:
+            raise AssertionError(f"flash kernel outside its tolerance of the plain version "
+                                 f"({label})")
+        record("flash_attention", label, err, ms, plain, b_ms, b_by, library)
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+
+    check_flash_gemma2(FLASH_GEMMA2_DECODE, False, 0,
+                       f"gemma2-27b decode bfloat16 Skv={FLASH_GEMMA2_DECODE[3]}")
+    check_flash_gemma2(FLASH_GEMMA2_PREFILL, True, GEMMA2_WINDOW,
+                       f"gemma2-27b local bfloat16 S={FLASH_GEMMA2_PREFILL[2]}")
+    check_flash_gemma2(FLASH_GEMMA2_PREFILL, True, 0,
+                       f"gemma2-27b global bfloat16 S={FLASH_GEMMA2_PREFILL[2]}")
+
+    # The options' edge cases, both dtypes, against the plain version.
+    edge_rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).removeprefix("torch.")
+        atol, rtol = FLASH_TOL[dname]
+        for window, softcap in FLASH_GEMMA2_EDGES:
+            gen = torch.Generator().manual_seed(3)
+            s_ = FLASH_GEMMA2_EDGE_S
+            q, k, v = (torch.randn((1, 4, s_, 128), generator=gen).to(dev, dtype)
+                       for _ in range(3))
+            if softcap:
+                q *= FLASH_CAP_Q_SCALE
+            opts = dict(causal=True, window=window, softcap=softcap)
+            got = flash_kernel.flash_attention(q, k, v, **opts).float()
+            want = ref.flash_attention_ref(q, k, v, **opts).float()
+            diff = (got - want).abs()
+            over = int((diff > atol + rtol * want.abs()).sum())
+            edge_rows.append(f"{dname} window {window} softcap {softcap}: {over} outside, max "
+                             f"{float(diff.max()):.3g}")
+            if over:
+                raise AssertionError(f"flash kernel outside its tolerance of the plain version "
+                                     f"({dname}, S={s_}, window {window}, softcap {softcap})")
+    print(f"kernel flash_attention gemma2 edge cases (1, 4, {FLASH_GEMMA2_EDGE_S}, "
+          f"{FLASH_GEMMA2_EDGE_S}, 128) causal, softcap rows with q x {FLASH_CAP_Q_SCALE}: "
+          f"{'; '.join(edge_rows)} {card}")
+    del q, k, v, got, want, diff
+
     def trace(label, fn):
         """``fn`` once more under torch.profiler: the device's busy share of
         its wall time and the kernels that take its device time.  Returns
@@ -1538,222 +1730,265 @@ def main() -> int:
         if cpu_mism:
             raise AssertionError(f"baseline {cfg.name}: card vs CPU differ in {cpu_mism} pixels")
 
-    # ---- 11. LM serving ------------------------------------------------------
-    # The dense GQA decoder through ServeEngine: every attention of the path
-    # is a flash kernel launch (decode: one query against the cache's valid
-    # prefix), the projections and the MLP are torch matmuls.
+    # ---- 11, 12. LM serving ---------------------------------------------------
+    # A dense GQA decoder through ServeEngine: every attention of the path is
+    # a flash kernel launch (decode: one query against the cache's valid
+    # prefix, or on gemma2's local layers its last 4096 positions), the
+    # projections and the MLP are torch matmuls.  yi-9b (phase 11), then
+    # gemma2-27b (phase 12: sliding window and softcap in the kernel), each at
+    # full width; the first is freed before the second is made.
     from repro_torch.configs import get_config
     from repro_torch.models import attention as attention_mod
+    from repro_torch.models import common as common_mod
     from repro_torch.models.model import LMModel, count_params
     from repro_torch.serving import ServeEngine, decode_step
     from repro_torch.serving import engine as engine_mod
 
-    cfg = get_config(LM_ARCH)
-    t0 = time.perf_counter()
-    model = LMModel(cfg).init(0)                        # on cuda:0
-    torch.cuda.synchronize()
-    print(f"lm {cfg.name}: {count_params(cfg)} parameters, {cfg.num_layers} layers (no cut), "
-          f"d_model {cfg.d_model}, {cfg.num_heads} heads ({cfg.num_kv_heads} KV) of "
-          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, seeded "
-          f"weights made on the card in {time.perf_counter() - t0:.2f} s; "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated {card}")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, size=rng.integers(4, LM_PROMPT_LEN + 1))
-               for _ in range(LM_REQUESTS)]
-    waves = [prompts[i:i + LM_BATCH] for i in range(0, LM_REQUESTS, LM_BATCH)]
-    steps = sum(max(len(p) + LM_NEW - 1 for p in wave) for wave in waves)
-    engine = ServeEngine(model, batch=LM_BATCH, max_len=LM_MAX_LEN)
-    engine.generate(waves[0], 2)                        # warm-up: cuBLAS, the first launches
-    torch.cuda.synchronize()
-
-    step_events = []
-
-    def timed_step(model, caches, tokens):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        out = decode_step(model, caches, tokens)
-        ev[1].record()
-        step_events.append(ev)
-        return out
-
-    engine_mod.decode_step = timed_step
-    reset_counts()
-    try:
+    def serve_lm_phase(phase: int, arch: str):
+        cfg = get_config(arch)
+        capped = cfg.logit_softcap > 0.0
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        outs = engine.generate(prompts, LM_NEW)         # the entry point
+        model = LMModel(cfg).init(0)                    # on cuda:0
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        engine_mod.decode_step = decode_step
-    counts = read_counts()
-    expect = {k: cfg.num_layers * steps if k == "flash_attention" else 0 for k in launches}
-    if counts != expect:
-        raise AssertionError(f"lm: launches {counts} in {steps} decode steps, expected {expect}")
-    for k in launches:
-        launches[k] += counts[k]
-    if (len(outs) != LM_REQUESTS or any(len(o) != LM_NEW for o in outs)
-            or not all(0 <= t < cfg.vocab_size for o in outs for t in o)):
-        raise AssertionError(f"lm: requests got {[len(o) for o in outs]} tokens, or a token "
-                             f"outside the vocabulary")
-    again = engine.generate(prompts, LM_NEW)
-    if again != outs:
-        raise AssertionError("lm: a second generate gave other tokens")
-    step_ms = [a.elapsed_time(b) for a, b in step_events]
-    tokens = sum(len(o) for o in outs)
-    print(f"lm serve {cfg.name} ServeEngine(batch={LM_BATCH}, max_len={LM_MAX_LEN}): "
-          f"{LM_REQUESTS} requests, {tokens} tokens in {len(waves)} waves of {steps} decode "
-          f"steps, {wall:.3f} s wall = {tokens / wall:.2f} tokens/s; decode step median "
-          f"{median_of(step_ms):.3f} ms, min {min(step_ms):.3f}, max {max(step_ms):.3f} (CUDA "
-          f"events); flash launches {counts['flash_attention']} = {cfg.num_layers} layers x "
-          f"{steps} steps; a second generate gives the same tokens {card}")
-
-    def mid_wave_step():
-        """The caches of wave 0 after its longest prompt, then one decode step
-        (profiled): the shapes of a step in the middle of a wave."""
-        caches = model.init_caches(LM_BATCH, LM_MAX_LEN)
-        toks = torch.zeros((LM_BATCH, 1), dtype=torch.long, device=dev)
-        for _ in range(LM_PROMPT_LEN):
-            caches, _ = decode_step(model, caches, toks)
+        print(f"lm {cfg.name} (phase {phase}): {count_params(cfg)} parameters, "
+              f"{cfg.num_layers} layers {'/'.join(k.value for k in cfg.pattern_unit)} (no cut), "
+              f"d_model {cfg.d_model}, {cfg.num_heads} heads ({cfg.num_kv_heads} KV) of "
+              f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+              f"window {cfg.sliding_window if len(set(cfg.layer_kinds)) > 1 else 'none'}, "
+              f"softcaps {cfg.attn_softcap} / {cfg.logit_softcap}, seeded weights made on the "
+              f"card in {time.perf_counter() - t0:.2f} s; "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated {card}")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, size=rng.integers(4, LM_PROMPT_LEN + 1))
+                   for _ in range(LM_REQUESTS)]
+        waves = [prompts[i:i + LM_BATCH] for i in range(0, LM_REQUESTS, LM_BATCH)]
+        steps = sum(max(len(p) + LM_NEW - 1 for p in wave) for wave in waves)
+        engine = ServeEngine(model, batch=LM_BATCH, max_len=LM_MAX_LEN)
+        engine.generate(waves[0], 2)                    # warm-up: cuBLAS, the first launches
         torch.cuda.synchronize()
-        return lambda: decode_step(model, caches, toks)
 
-    rows, wall_us = trace(f"lm {cfg.name} decode step", mid_wave_step())
-    busy = sum(r[0] for r in rows)
-    flash_us = sum(r[0] for r in rows if "flash_attention" in r[2])
-    # cuBLAS's kernels: nvjet_* on this toolkit, *gemm* / *gemv* on others
-    gemm_us = sum(r[0] for r in rows if any(w in r[2].lower() for w in
-                                            ("nvjet", "gemm", "gemv", "xmma", "cutlass")))
-    # The GQA expansion of k and v for the kernel (attention._expand_kv), one
-    # layer's traced alone at the step's shapes (the cache's valid prefix of
-    # LM_PROMPT_LEN + 1 positions), times the layers.
-    n = LM_PROMPT_LEN + 1
-    kv = [torch.zeros((LM_BATCH, LM_MAX_LEN, cfg.num_kv_heads, cfg.head_dim),
-                      dtype=torch.bfloat16, device=dev) for _ in range(2)]
-    def expand():
-        return [attention_mod._expand_kv(t[:, :n], cfg.num_heads) for t in kv]
+        step_events = []
 
-    exp_us = queued_ms(expand, 50, "the KV expansion")[0] * 1e3 * cfg.num_layers
-    # a trace only loses records: the fullest of three counts the operations
-    exp_rows = max((traced_rows(expand, 10, "the KV expansion") for _ in range(3)),
-                   key=lambda t: sum(r[1] for r in t))
-    exp_ops = sum(r[1] for r in exp_rows) // 10 * cfg.num_layers
-    del kv
-    print(f"lm profile {cfg.name} decode step (batch {LM_BATCH}, cache index "
-          f"{LM_PROMPT_LEN}): device busy {busy:.1f} us of {wall_us:.1f} us wall under the "
-          f"profiler ({100 * busy / wall_us:.1f}%; "
-          f"{100 * busy / 1e3 / median_of(step_ms):.1f}% of the median unprofiled step), "
-          f"flash {flash_us:.1f} us "
-          f"({100 * flash_us / max(busy, 1e-9):.1f}% of busy), matmuls {gemm_us:.1f} us "
-          f"({100 * gemm_us / max(busy, 1e-9):.1f}%), the KV expansion for the kernel "
-          f"{exp_us:.1f} us ({100 * exp_us / max(busy, 1e-9):.1f}%; {exp_ops} device "
-          f"operations, {cfg.num_layers} layers x one timed alone: "
-          f"{sorted({r[2][:40] for r in exp_rows})}), {sum(r[1] for r in rows)} device "
-          f"operations {card}")
+        def timed_step(model, caches, tokens):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = decode_step(model, caches, tokens)
+            ev[1].record()
+            step_events.append(ev)
+            return out
 
-    # The kernel against its plain version on this path: wave 0 again, every
-    # step's logits kept, once through the kernel and once with the attention's
-    # kernel call swapped for the plain version (here only, not in the package).
-    def logged_wave():
-        log = []
-
-        @torch.inference_mode()
-        def step(model, caches, tokens):
-            logits, caches, _ = model.apply(tokens, caches=caches)
-            log.append(logits[:, -1].clone())
-            return caches, torch.argmax(logits[:, -1], dim=-1)
-
-        engine_mod.decode_step = step
+        engine_mod.decode_step = timed_step
+        reset_counts()
         try:
-            toks = ServeEngine(model, LM_BATCH, LM_MAX_LEN).generate(waves[0], LM_NEW)
+            t0 = time.perf_counter()
+            outs = engine.generate(prompts, LM_NEW)     # the entry point
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         finally:
             engine_mod.decode_step = decode_step
-        return toks, torch.stack(log)                   # (steps, B, V)
+        counts = read_counts()
+        expect = {k: cfg.num_layers * steps if k == "flash_attention" else 0 for k in launches}
+        if counts != expect:
+            raise AssertionError(f"lm {cfg.name}: launches {counts} in {steps} decode steps, "
+                                 f"expected {expect}")
+        for k in launches:
+            launches[k] += counts[k]
+        if (len(outs) != LM_REQUESTS or any(len(o) != LM_NEW for o in outs)
+                or not all(0 <= t < cfg.vocab_size for o in outs for t in o)):
+            raise AssertionError(f"lm {cfg.name}: requests got {[len(o) for o in outs]} tokens, "
+                                 f"or a token outside the vocabulary")
+        again = engine.generate(prompts, LM_NEW)
+        if again != outs:
+            raise AssertionError(f"lm {cfg.name}: a second generate gave other tokens")
+        step_ms = [a.elapsed_time(b) for a, b in step_events]
+        tokens = sum(len(o) for o in outs)
+        print(f"lm serve {cfg.name} ServeEngine(batch={LM_BATCH}, max_len={LM_MAX_LEN}): "
+              f"{LM_REQUESTS} requests, {tokens} tokens in {len(waves)} waves of {steps} decode "
+              f"steps, {wall:.3f} s wall = {tokens / wall:.2f} tokens/s; decode step median "
+              f"{median_of(step_ms):.3f} ms, min {min(step_ms):.3f}, max {max(step_ms):.3f} "
+              f"(CUDA events); flash launches {counts['flash_attention']} = {cfg.num_layers} "
+              f"layers x {steps} steps; a second generate gives the same tokens; "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
 
-    k_toks, k_logits = logged_wave()
-    attention_mod.flash_attention = ref.flash_attention_ref
-    try:
-        p_toks, p_logits = logged_wave()
-    finally:
-        attention_mod.flash_attention = flash_kernel.flash_attention
-    if k_toks != outs[:LM_BATCH]:
-        raise AssertionError("lm: the logged kernel run's tokens differ from generate's")
-    held = low = after = after_equal = 0
-    first_delta = float((k_logits[0] - p_logits[0]).abs().max())
-    max_delta = 0.0
-    top2 = p_logits.topk(2, dim=-1).values
-    margins = (top2[..., 0] - top2[..., 1]).cpu()
-    for i, prompt in enumerate(waves[0]):
-        start = len(prompt) - 1                         # the step of the first new token
-        j = 0
-        while j < LM_NEW:                               # inputs equal on both paths so far
-            margin = float(margins[start + j, i])
-            max_delta = max(max_delta, float((k_logits[start + j, i]
-                                              - p_logits[start + j, i]).abs().max()))
-            if k_toks[i][j] != p_toks[i][j]:
-                if margin > LM_MARGIN:
-                    raise AssertionError(
-                        f"lm: request {i} token {j}: the kernel path gives {k_toks[i][j]}, the "
-                        f"plain path {p_toks[i][j]}, with plain top-2 margin {margin} > "
-                        f"{LM_MARGIN}")
-                break
-            held, low = held + (margin > LM_MARGIN), low + (margin <= LM_MARGIN)
-            j += 1
-        for t in range(start):                          # the prompt's steps
-            max_delta = max(max_delta, float((k_logits[t, i] - p_logits[t, i]).abs().max()))
-        after += LM_NEW - j
-        after_equal += sum(a == b for a, b in zip(k_toks[i][j:], p_toks[i][j:]))
-    print(f"lm kernel vs plain attention {cfg.name} wave 0 ({LM_BATCH} requests x {LM_NEW} "
-          f"tokens): first step max |d logit| {first_delta:.6f}, max over steps with equal "
-          f"inputs {max_delta:.6f}; while the inputs are equal, {held} tokens with plain top-2 "
-          f"margin > {LM_MARGIN} (gated) and {low} under it all equal; from each request's "
-          f"first differing token on, {after_equal} of {after} equal (not gated) {card}")
-    del k_logits, p_logits, model, engine
-    torch.cuda.empty_cache()
+        def mid_wave_step():
+            """The caches of wave 0 after its longest prompt, then one decode
+            step (profiled): the shapes of a step in the middle of a wave."""
+            caches = model.init_caches(LM_BATCH, LM_MAX_LEN)
+            toks = torch.zeros((LM_BATCH, 1), dtype=torch.long, device=dev)
+            for _ in range(LM_PROMPT_LEN):
+                caches, _ = decode_step(model, caches, toks)
+            torch.cuda.synchronize()
+            return lambda: decode_step(model, caches, toks)
 
-    # The reduced model in float32 on the card against the port's CPU run.
-    cfg32 = dataclasses.replace(get_config(LM_ARCH, reduced=True), dtype="float32")
-    on_cpu = LMModel(cfg32, device="cpu").init(0)
-    on_card = LMModel(cfg32)
-    on_card.load_state_dict(on_cpu.state_dict())
-    rng = np.random.default_rng(0)
-    prompts32 = [rng.integers(0, cfg32.vocab_size, size=rng.integers(4, LM_PROMPT_LEN + 1))
-                 for _ in range(LM_REQUESTS)]
-    toks_card = ServeEngine(on_card, LM_BATCH, LM_MAX_LEN).generate(prompts32, LM_NEW)
-    toks_cpu = ServeEngine(on_cpu, LM_BATCH, LM_MAX_LEN).generate(prompts32, LM_NEW)
-    batch_toks = torch.as_tensor(np.stack([p[:4] for p in prompts32[:LM_BATCH]]))
-    atol, rtol = LM_F32_TOL
-    worst = 0.0
-    with torch.inference_mode():
-        caches = {d: m.init_caches(LM_BATCH, LM_MAX_LEN) for d, m in (("card", on_card),
-                                                                       ("cpu", on_cpu))}
-        pairs = [(on_card.apply(batch_toks)[0], on_cpu.apply(batch_toks)[0])]   # no cache
-        for t in range(batch_toks.shape[1]):                                   # decode
-            lc, caches["card"], _ = on_card.apply(batch_toks[:, t:t + 1], caches=caches["card"])
-            lh, caches["cpu"], _ = on_cpu.apply(batch_toks[:, t:t + 1], caches=caches["cpu"])
-            pairs.append((lc, lh))
-    for lc, lh in pairs:
-        lc = lc.cpu()
-        worst = max(worst, float((lc - lh).abs().max()))
-        if not torch.allclose(lc, lh, atol=atol, rtol=rtol):
-            raise AssertionError(f"lm float32 {cfg32.name}: card logits outside atol {atol} + "
-                                 f"rtol {rtol} of the CPU's")
-    print(f"lm {cfg32.name} float32: card tokens {'equal' if toks_card == toks_cpu else 'DIFFER'}"
-          f" to the CPU run's ({LM_REQUESTS} requests x {LM_NEW}); logits (no cache and 4 "
-          f"decode steps) max |card - CPU| {worst:.3g} within atol {atol} + rtol {rtol} {card}")
-    if toks_card != toks_cpu:
-        raise AssertionError(f"lm float32 {cfg32.name}: card tokens differ from the CPU's")
+        rows, wall_us = trace(f"lm {cfg.name} decode step", mid_wave_step())
+        busy = sum(r[0] for r in rows)
+        flash_us = sum(r[0] for r in rows if "flash_attention" in r[2])
+        # cuBLAS's kernels: nvjet_* on this toolkit, *gemm* / *gemv* on others
+        gemm_us = sum(r[0] for r in rows if any(w in r[2].lower() for w in
+                                                ("nvjet", "gemm", "gemv", "xmma", "cutlass")))
+        # The GQA expansion of k and v for the kernel (attention._expand_kv), one
+        # layer's traced alone at the step's shapes (the cache's valid prefix of
+        # LM_PROMPT_LEN + 1 positions), times the layers.
+        n = LM_PROMPT_LEN + 1
+        kv = [torch.zeros((LM_BATCH, LM_MAX_LEN, cfg.num_kv_heads, cfg.head_dim),
+                          dtype=torch.bfloat16, device=dev) for _ in range(2)]
 
-    reset_counts()
-    rc = serve_launch.main(["lm", "--device", "cuda"])
-    counts = read_counts()
-    print(f"serve lm (repro_torch.launch.serve, yi-9b-reduced): exit {rc}, launches {counts} "
-          f"{card}")
-    if rc != 0 or counts["flash_attention"] == 0:
-        raise AssertionError("the lm serve launcher failed or launched no flash kernel")
-    for k in launches:
-        launches[k] += counts[k]
+        def expand():
+            return [attention_mod._expand_kv(t[:, :n], cfg.num_heads) for t in kv]
 
-    # ---- 12. summary -------------------------------------------------------
+        exp_us = queued_ms(expand, 50, "the KV expansion")[0] * 1e3 * cfg.num_layers
+        # a trace only loses records: the fullest of three counts the operations
+        exp_rows = max((traced_rows(expand, 10, "the KV expansion") for _ in range(3)),
+                       key=lambda t: sum(r[1] for r in t))
+        exp_ops = sum(r[1] for r in exp_rows) // 10 * cfg.num_layers
+        del kv
+        print(f"lm profile {cfg.name} decode step (batch {LM_BATCH}, cache index "
+              f"{LM_PROMPT_LEN}): device busy {busy:.1f} us of {wall_us:.1f} us wall under the "
+              f"profiler ({100 * busy / wall_us:.1f}%; "
+              f"{100 * busy / 1e3 / median_of(step_ms):.1f}% of the median unprofiled step), "
+              f"flash {flash_us:.1f} us "
+              f"({100 * flash_us / max(busy, 1e-9):.1f}% of busy), matmuls {gemm_us:.1f} us "
+              f"({100 * gemm_us / max(busy, 1e-9):.1f}%), the KV expansion for the kernel "
+              f"{exp_us:.1f} us ({100 * exp_us / max(busy, 1e-9):.1f}%; {exp_ops} device "
+              f"operations, {cfg.num_layers} layers x one timed alone: "
+              f"{sorted({r[2][:40] for r in exp_rows})}), {sum(r[1] for r in rows)} device "
+              f"operations {card}")
+
+        # The kernel against its plain version on this path: wave 0 again,
+        # every step's logits kept (and, with a logit softcap, the logits
+        # before it), once through the kernel and once with the attention's
+        # kernel call swapped for the plain version (here only, not in the
+        # package).
+        def logged_wave():
+            log, pre = [], []
+            logits_of = model._logits
+
+            def logits_and_pre(x):
+                if capped:
+                    h = common_mod.rms_norm(x[:, -1], model.final_norm, cfg.norm_eps)
+                    pre.append((h @ model.embed.T).float())
+                return logits_of(x)
+
+            @torch.inference_mode()
+            def step(model, caches, tokens):
+                logits, caches, _ = model.apply(tokens, caches=caches)
+                log.append(logits[:, -1].clone())
+                return caches, torch.argmax(logits[:, -1], dim=-1)
+
+            engine_mod.decode_step = step
+            model._logits = logits_and_pre
+            try:
+                toks = ServeEngine(model, LM_BATCH, LM_MAX_LEN).generate(waves[0], LM_NEW)
+            finally:
+                engine_mod.decode_step = decode_step
+                del model._logits
+            return toks, torch.stack(log), torch.stack(pre if capped else log)   # (steps, B, V)
+
+        k_toks, k_logits, k_pre = logged_wave()
+        attention_mod.flash_attention = ref.flash_attention_ref
+        try:
+            p_toks, p_logits, p_pre = logged_wave()
+        finally:
+            attention_mod.flash_attention = flash_kernel.flash_attention
+        if k_toks != outs[:LM_BATCH]:
+            raise AssertionError(f"lm {cfg.name}: the logged kernel run's tokens differ from "
+                                 f"generate's")
+        top = float(p_pre.topk(2, dim=-1).values[..., 1].max())
+        delta = LM_LOGIT_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+        held = low = after = after_equal = 0
+        first_delta = float((k_pre[0] - p_pre[0]).abs().max())
+        max_delta = 0.0
+        top2 = p_logits.topk(2, dim=-1).values
+        margins = (top2[..., 0] - top2[..., 1]).cpu()
+        for i, prompt in enumerate(waves[0]):
+            start = len(prompt) - 1                     # the step of the first new token
+            j = 0
+            while j < LM_NEW:                           # inputs equal on both paths so far
+                margin = float(margins[start + j, i])
+                max_delta = max(max_delta, float((k_pre[start + j, i]
+                                                  - p_pre[start + j, i]).abs().max()))
+                if k_toks[i][j] != p_toks[i][j]:
+                    if margin > 2 * delta:
+                        raise AssertionError(
+                            f"lm {cfg.name}: request {i} token {j}: the kernel path gives "
+                            f"{k_toks[i][j]}, the plain path {p_toks[i][j]}, with plain top-2 "
+                            f"margin {margin} > {2 * delta}")
+                    break
+                held, low = held + (margin > 2 * delta), low + (margin <= 2 * delta)
+                j += 1
+            for t in range(start):                      # the prompt's steps
+                max_delta = max(max_delta, float((k_pre[t, i] - p_pre[t, i]).abs().max()))
+            after += LM_NEW - j
+            after_equal += sum(a == b for a, b in zip(k_toks[i][j:], p_toks[i][j:]))
+        what = "pre-cap logit" if capped else "logit"
+        print(f"lm kernel vs plain attention {cfg.name} wave 0 ({LM_BATCH} requests x {LM_NEW} "
+              f"tokens): largest second-best {what} {top:.4g}, so delta = {LM_LOGIT_ULPS} "
+              f"bfloat16 steps "
+              f"of its binade = {delta:g}; first step max |d {what}| {first_delta:.6f}, max over "
+              f"steps with equal inputs {max_delta:.6f}; while the inputs are equal, {held} "
+              f"tokens with plain top-2 margin > {2 * delta:g} (gated) and {low} under it all "
+              f"equal; from each request's first differing token on, {after_equal} of {after} "
+              f"equal (not gated) {card}")
+        if max_delta > delta:
+            raise AssertionError(f"lm {cfg.name}: the kernel path's {what}s differ from the plain "
+                                 f"path's by {max_delta} > {delta} with equal inputs")
+        del k_logits, p_logits, k_pre, p_pre, model, engine
+
+        # The reduced model in float32 on the card against the port's CPU run.
+        cfg32 = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+        on_cpu = LMModel(cfg32, device="cpu").init(0)
+        on_card = LMModel(cfg32)
+        on_card.load_state_dict(on_cpu.state_dict())
+        rng = np.random.default_rng(0)
+        prompts32 = [rng.integers(0, cfg32.vocab_size, size=rng.integers(4, LM_PROMPT_LEN + 1))
+                     for _ in range(LM_REQUESTS)]
+        toks_card = ServeEngine(on_card, LM_BATCH, LM_MAX_LEN).generate(prompts32, LM_NEW)
+        toks_cpu = ServeEngine(on_cpu, LM_BATCH, LM_MAX_LEN).generate(prompts32, LM_NEW)
+        batch_toks = torch.as_tensor(rng.integers(0, cfg32.vocab_size, (LM_BATCH, LM_F32_STEPS)))
+        atol, rtol = LM_F32_TOL
+        worst = 0.0
+        with torch.inference_mode():
+            caches = {d: m.init_caches(LM_BATCH, LM_F32_STEPS, torch.float32)
+                      for d, m in (("card", on_card), ("cpu", on_cpu))}
+            pairs = [(on_card.apply(batch_toks)[0], on_cpu.apply(batch_toks)[0])]   # no cache
+            for t in range(LM_F32_STEPS):                                          # decode
+                lc, caches["card"], _ = on_card.apply(batch_toks[:, t:t + 1],
+                                                      caches=caches["card"])
+                lh, caches["cpu"], _ = on_cpu.apply(batch_toks[:, t:t + 1],
+                                                    caches=caches["cpu"])
+                pairs.append((lc, lh))
+        for lc, lh in pairs:
+            lc = lc.cpu()
+            worst = max(worst, float((lc - lh).abs().max()))
+            if not torch.allclose(lc, lh, atol=atol, rtol=rtol):
+                raise AssertionError(f"lm float32 {cfg32.name}: card logits outside atol {atol} "
+                                     f"+ rtol {rtol} of the CPU's (max {worst})")
+        print(f"lm {cfg32.name} float32: card tokens "
+              f"{'equal' if toks_card == toks_cpu else 'DIFFER'} to the CPU run's "
+              f"({LM_REQUESTS} requests x {LM_NEW}); logits (no cache over {LM_F32_STEPS} "
+              f"tokens, and {LM_F32_STEPS} decode steps through float32 caches) max |card - CPU| "
+              f"{worst:.3g} within atol {atol} + rtol {rtol} {card}")
+        if toks_card != toks_cpu:
+            raise AssertionError(f"lm float32 {cfg32.name}: card tokens differ from the CPU's")
+
+        reset_counts()
+        rc = serve_launch.main(["lm", "--device", "cuda", "--arch", arch])
+        counts = read_counts()
+        print(f"serve lm --arch {arch} (repro_torch.launch.serve, {arch}-reduced): exit {rc}, "
+              f"launches {counts} {card}")
+        if rc != 0 or counts["flash_attention"] == 0:
+            raise AssertionError("the lm serve launcher failed or launched no flash kernel")
+        for k in launches:
+            launches[k] += counts[k]
+
+    for phase, arch in enumerate(LM_ARCHS, start=11):
+        serve_lm_phase(phase, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- 13. summary -------------------------------------------------------
     shown = {"flash_attention": f"yi-9b decode bfloat16 Skv={FLASH_DECODE[-1][3]}"}
     entries = []
     for kname, _, _, source, replaces in kernels:

@@ -14,11 +14,24 @@
 // (weight exactly 0); the result is divided by max(l, 1e-30), l the row's
 // sum of exponentials, as the Pallas body does.
 //
+// gemma2's two options, which the reference computes in plain JAX
+// (src/repro/models/attention.py: blockwise_attention, decode_attention),
+// each a template parameter so that the kernels without them stay as they
+// were: a softcap (each scaled score s becomes cap * tanh(s / cap) before
+// the mask; tanhf, whose error of ~2 ulps keeps the one-ulp bf16 tolerance
+// where tanh.approx's 2^-11 would move a score at cap 50 by ~0.02) and a
+// causal sliding window (row i sees keys i - window + 1 .. i: the key loop
+// starts at the tile that holds the block's first row's first key, and the
+// mask also runs on the tiles that cross the window's lower edge).
+//
 // What bounds it on an H100: operations.  4 * Sq * Skv * D flops per head
 // (halved when causal) against 2 * (Sq + Skv) * D elements moved: at
 // S = 4096, D = 128 that is ~1000 flops a byte.  The ceiling is the tensor
 // cores' 989 TFLOP/s for bfloat16 and the CUDA cores' 67 TFLOP/s for
 // float32 (TF32 would round the inputs to 10 bits and miss the tolerance).
+// With a window only the visible (query, key) pairs count.  The softcap adds
+// a tanhf to each score's exp2 (more SFU and FMA work a score, against the
+// tensor cores' 64 flops a score at D = 128).
 //
 // Both paths share the outer design: one block per (query tile, batch *
 // head), the Pallas grid's sequential kv axis a loop inside the block that
@@ -26,10 +39,13 @@
 // blocks run in no order and share no scratch; with `causal` the loop ends
 // at the last key tile a row of the query tile can see (the Pallas kernel's
 // pl.when skip), and the grid runs the heaviest query tiles first (blockIdx.y
-// reversed, batch * head on x) so the short ones fill the tail.  The first
-// key tile holds position 0, which every row sees, so a row's running max is
-// finite after it and no row divides by 0.  No split over keys and no
-// atomics: a call is deterministic.
+// reversed, batch * head on x) so the short ones fill the tail.  Every row
+// sees its own position (a window needs Sq <= Skv), so a row's running max
+// is finite once it has passed that key and no row divides by 0; a row that
+// sees no key of the block's first tiles (below its window) gives their
+// masked scores weight exp2(0) until then, and the first finite max scales
+// that away by exp2(kMasked - m) = 0, as the reference's blockwise scan
+// does.  No split over keys and no atomics: a call is deterministic.
 //
 // bfloat16 (flash_attention_bf16_kernel), the tensor-core path:
 //  * 384 threads: a producer warpgroup, whose one thread keeps TMA loads in
@@ -46,7 +62,7 @@
 //  * the online softmax runs on the accumulator fragment: each thread holds
 //    two rows, whose max is reduced over a quad with two shuffles (the sum
 //    only once, at the end); the mask runs only on tiles that cross the
-//    diagonal or the end of the keys;
+//    diagonal, the window's lower edge or the end of the keys;
 //  * O += P V is wgmma with A (P) in registers, repacked from the S fragment,
 //    and B (V, MN-major as stored) through a descriptor with the transpose
 //    bit.  bf16(P) alone would move ~10% of the outputs by more than one
@@ -86,6 +102,32 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// How a raw score s = q.k becomes the exponent of exp2: times scale =
+// 1/sqrt(D), then (kCap) capped to cap * tanh(s / cap), then times log2(e) --
+// the reference's order (scale, cap, mask).  Without the cap the two factors
+// fold into one multiply, as before the cap existed.
+struct ScoreMap {
+  float scale_log2;   // scale * log2(e)
+  float scale;
+  float cap;
+  float inv_cap;      // 1 / cap, rounded once: the cap's argument is within an ulp of s / cap
+};
+
+template <bool kCap>
+__device__ __forceinline__ float log2_score(float s, ScoreMap f) {
+  if constexpr (kCap) return f.cap * tanhf(s * f.scale * f.inv_cap) * kLog2e;
+  else return s * f.scale_log2;
+}
+
+// The first key tile of a block whose first query row is q0: with a window
+// (kWin) the tile that holds q0 - window + 1, the first key that row sees
+// (tiles wholly below it are never loaded); else tile 0.
+template <bool kWin, int BK>
+__device__ __forceinline__ int first_tile(int q0, int window) {
+  if constexpr (kWin) return max(0, q0 - window + 1) / BK;
+  else return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -209,10 +251,10 @@ __device__ __forceinline__ void load_v(float (&x)[D / 16], const float* row, int
   }
 }
 
-template <int D>
+template <int D, bool kCap, bool kWin>
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ out, int sq, int skv, int causal, float scale_log2) {
+    float* __restrict__ out, int sq, int skv, int causal, int window, ScoreMap f) {
   constexpr int kC = D / 16;
   constexpr int kHalf = kBQ / 2;
   extern __shared__ float4 smem4[];
@@ -233,12 +275,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_f32_kernel(
 
   const int kv_end = causal ? min(skv, min(q0 + kBQ, sq)) : skv;
   const int tiles = (kv_end + kBK - 1) / kBK;
+  const int t_begin = first_tile<kWin, kBK>(q0, window);
 
   load_transposed<D, kBQ, kLdQ>(qt, qb, q0, sq, tid);
   cp_async_commit();
-  load_transposed<D, kBK, kLdK>(kt, kb, 0, skv, tid);
+  load_transposed<D, kBK, kLdK>(kt, kb, t_begin * kBK, skv, tid);
   cp_async_commit();
-  load_rows<D>(vs, vb, 0, skv, tid);
+  load_rows<D>(vs, vb, t_begin * kBK, skv, tid);
   cp_async_commit();
 
   float m[8], l[8], o[8][kC];     // m in the log2 domain
@@ -250,7 +293,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_f32_kernel(
     for (int c = 0; c < kC; ++c) o[i][c] = 0.f;
   }
 
-  for (int t = 0; t < tiles; ++t) {
+  for (int t = t_begin; t < tiles; ++t) {
     const int k0 = t * kBK;
     const bool more = t + 1 < tiles;
     cp_async_wait<1>();              // Q and this K tile are in; this V tile may not be
@@ -277,19 +320,23 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_f32_kernel(
       cp_async_commit();
     }
 
-    // Tiles inside the visible triangle and before the end need no mask.
-    const bool edge = k0 + kBK > skv || (causal && k0 + kBK - 1 > q0);
+    // Tiles inside the visible band and before the end need no mask: the
+    // upper edge is the diagonal, the lower (kWin) the window's start of
+    // the tile's last row.
+    const bool edge = k0 + kBK > skv || (causal && k0 + kBK - 1 > q0) ||
+                      (kWin && k0 <= q0 + kBQ - 1 - window);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int qpos = q0 + row_of(i);
       float mc = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        float x = s[i][j] * scale_log2;
+        float x = log2_score<kCap>(s[i][j], f);
         if (edge) {
           const int kpos = k0 + tx * 4 + j;
           if (kpos >= skv) x = -INFINITY;                 // past the end: weight 0
           else if (causal && kpos > qpos) x = kMasked;    // the reference's mask value
+          else if (kWin && qpos - kpos >= window) x = kMasked;
         }
         s[i][j] = x;
         mc = fmaxf(mc, x);
@@ -345,10 +392,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_f32_kernel(
   }
 }
 
-template <int D>
+template <int D, bool kCap, bool kWin>
 int launch(const void* q, const void* k, const void* v, void* out, int bh, int sq, int skv,
-           int causal, float scale, cudaStream_t stream) {
-  auto kernel = flash_attention_f32_kernel<D>;
+           int causal, int window, ScoreMap f, cudaStream_t stream) {
+  auto kernel = flash_attention_f32_kernel<D, kCap, kWin>;
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -356,7 +403,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh, int s
   const dim3 grid(bh, (sq + kBQ - 1) / kBQ);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), sq, skv, causal, scale * kLog2e);
+      static_cast<float*>(out), sq, skv, causal, window, f);
   return (int)cudaGetLastError();
 }
 
@@ -535,12 +582,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// The consumer warpgroup `c` (0 or 1): query rows q0 + 64c .. + 63.
-template <int D>
+// The consumer warpgroup `c` (0 or 1): query rows q0 + 64c .. + 63, over key
+// tiles t_begin .. tiles - 1 (the i-th in stage i % kStages).
+template <int D, bool kCap, bool kWin>
 __device__ __forceinline__ void consume(uint32_t q_s, uint32_t k_s, uint32_t v_s, uint32_t bars,
                                         __nv_bfloat16* __restrict__ out, int bh, int q0,
-                                        int tiles, int sq, int skv, int causal,
-                                        float scale_log2, int c) {
+                                        int t_begin, int tiles, int sq, int skv, int causal,
+                                        int window, ScoreMap f, int c) {
   using T = Tiles<D>;
   constexpr int kO = T::kCols / 2;          // output accumulator: 64 x kCols over 128 threads
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
@@ -557,9 +605,9 @@ __device__ __forceinline__ void consume(uint32_t q_s, uint32_t k_s, uint32_t v_s
   mbar_wait(q_full, 0);
   const uint32_t q_wg = q_s + 64 * c * kRowBytes;
 
-  for (int t = 0; t < tiles; ++t) {
-    const int stage = t % kStages;
-    mbar_wait(full0 + 8 * stage, (t / kStages) & 1);
+  for (int t = t_begin; t < tiles; ++t) {
+    const int i = t - t_begin, stage = i % kStages;
+    mbar_wait(full0 + 8 * stage, (i / kStages) & 1);
     const uint32_t k_t = k_s + stage * T::kKVBytes, v_t = v_s + stage * T::kKVBytes;
 
     // S = Q K^T over d in steps of 16 (a 128-byte row holds four).
@@ -578,17 +626,20 @@ __device__ __forceinline__ void consume(uint32_t q_s, uint32_t k_s, uint32_t v_s
     // Online softmax on the fragment: s[4j + e] is row row0 + 8 * (e / 2),
     // key k0 + 8j + 2 * quad_col + e % 2.
     const int k0 = t * kBK;
-    const bool edge = k0 + kBK > skv || (causal && k0 + kBK - 1 > q0 + 64 * c);
+    const bool edge = k0 + kBK > skv || (causal && k0 + kBK - 1 > q0 + 64 * c) ||
+                      (kWin && k0 <= q0 + 64 * c + 63 - window);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[4 * j + e] * scale_log2;
+        float x = log2_score<kCap>(s[4 * j + e], f);
         if (edge) {
           const int kpos = k0 + 8 * j + 2 * quad_col + (e & 1);
-          if (kpos >= skv) x = -INFINITY;                              // weight 0
-          else if (causal && kpos > row0 + 8 * (e >> 1)) x = kMasked;  // the reference's mask
+          const int qpos = row0 + 8 * (e >> 1);
+          if (kpos >= skv) x = -INFINITY;                       // weight 0
+          else if (causal && kpos > qpos) x = kMasked;          // the reference's mask
+          else if (kWin && qpos - kpos >= window) x = kMasked;
         }
         s[4 * j + e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -656,11 +707,11 @@ __device__ __forceinline__ void consume(uint32_t q_s, uint32_t k_s, uint32_t v_s
   }
 }
 
-template <int D>
+template <int D, bool kCap, bool kWin>
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_bf16_kernel(
     const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
     const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ out, int sq,
-    int skv, int causal, float scale_log2) {
+    int skv, int causal, int window, ScoreMap f) {
   using T = Tiles<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;   // 128-byte swizzle: 1024
@@ -674,6 +725,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_bf16_kernel(
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;    // heaviest tiles first
   const int kv_end = causal ? min(skv, min(q0 + kBQ, sq)) : skv;
   const int tiles = (kv_end + kBK - 1) / kBK;
+  const int t_begin = first_tile<kWin, kBK>(q0, window);   // producer and consumers agree
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -693,10 +745,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_bf16_kernel(
       mbar_expect_tx(q_full, T::kQBytes);
       for (int b = 0; b < T::kBoxes; ++b)
         tma_load(q_s + b * kBQ * kRowBytes, &map_q, q_full, b * kBoxCols, q0, bh);
-      for (int t = 0; t < tiles; ++t) {
-        const int stage = t % kStages;
-        // The consumers released this stage's previous tile (t - kStages).
-        if (t >= kStages) mbar_wait(empty0 + 8 * stage, ((t / kStages) + 1) & 1);
+      for (int t = t_begin; t < tiles; ++t) {
+        const int i = t - t_begin, stage = i % kStages;
+        // The consumers released this stage's previous tile (i - kStages).
+        if (i >= kStages) mbar_wait(empty0 + 8 * stage, ((i / kStages) + 1) & 1);
         const uint32_t full = full0 + 8 * stage;
         mbar_expect_tx(full, 2 * T::kKVBytes);
         for (int b = 0; b < T::kBoxes; ++b) {
@@ -708,7 +760,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_bf16_kernel(
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    consume<D>(q_s, k_s, v_s, bars, out, bh, q0, tiles, sq, skv, causal, scale_log2, wg - 1);
+    consume<D, kCap, kWin>(q_s, k_s, v_s, bars, out, bh, q0, t_begin, tiles, sq, skv, causal,
+                           window, f, wg - 1);
   }
 }
 
@@ -748,16 +801,16 @@ CUresult encode(CUtensorMap* map, const void* base, int bh, int rows, int d, int
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int D>
+template <int D, bool kCap, bool kWin>
 int launch(const void* q, const void* k, const void* v, void* out, int bh, int sq, int skv,
-           int causal, float scale, cudaStream_t stream) {
+           int causal, int window, ScoreMap f, cudaStream_t stream) {
   if (encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap map_q, map_k, map_v;
   if (encode(&map_q, q, bh, sq, D, kBQ) != CUDA_SUCCESS ||
       encode(&map_k, k, bh, skv, D, kBK) != CUDA_SUCCESS ||
       encode(&map_v, v, bh, skv, D, kBK) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
-  auto kernel = flash_attention_bf16_kernel<D>;
+  auto kernel = flash_attention_bf16_kernel<D, kCap, kWin>;
   const int smem = Tiles<D>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem);
@@ -765,19 +818,21 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh, int s
   const dim3 grid(bh, (sq + kBQ - 1) / kBQ);
   kernel<<<grid, kThreads, smem, stream>>>(map_q, map_k, map_v,
                                            static_cast<__nv_bfloat16*>(out), sq, skv, causal,
-                                           scale * kLog2e);
+                                           window, f);
   return (int)cudaGetLastError();
 }
 
 }  // namespace bf16
 
-template <bool kBf16>
+template <bool kBf16, bool kCap, bool kWin>
 int dispatch(const void* q, const void* k, const void* v, void* out, int bh, int sq, int skv,
-             int d, int causal, float scale, cudaStream_t stream) {
+             int d, int causal, int window, ScoreMap f, cudaStream_t stream) {
 #define IELAS_FLASH_CASE(D)                                                                  \
   case D:                                                                                    \
-    return kBf16 ? bf16::launch<D>(q, k, v, out, bh, sq, skv, causal, scale, stream)         \
-                 : f32::launch<D>(q, k, v, out, bh, sq, skv, causal, scale, stream);
+    return kBf16 ? bf16::launch<D, kCap, kWin>(q, k, v, out, bh, sq, skv, causal, window, f, \
+                                               stream)                                       \
+                 : f32::launch<D, kCap, kWin>(q, k, v, out, bh, sq, skv, causal, window, f,  \
+                                              stream);
   switch (d) {
     IELAS_FLASH_CASE(16)
     IELAS_FLASH_CASE(32)
@@ -788,18 +843,41 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int bh, int
 #undef IELAS_FLASH_CASE
 }
 
+template <bool kCap, bool kWin>
+int dispatch_type(const void* q, const void* k, const void* v, void* out, int bh, int sq,
+                  int skv, int d, int dtype, int causal, int window, ScoreMap f,
+                  cudaStream_t s) {
+  if (dtype == 0)
+    return dispatch<false, kCap, kWin>(q, k, v, out, bh, sq, skv, d, causal, window, f, s);
+  if (dtype == 1)
+    return dispatch<true, kCap, kWin>(q, k, v, out, bh, sq, skv, d, causal, window, f, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Launch on `stream`: q (bh, sq, d), k and v (bh, skv, d), out like q, all
 // contiguous and 16-byte aligned, of one type: dtype 0 float32, 1 bfloat16.
 // d is 16, 32, 64 or 128; sq, skv >= 1; sq / 64 tiles at most 65535.
+// window > 0 (causal, sq <= skv, so that every row sees its own position):
+// row i sees keys i - window + 1 .. i; softcap > 0 caps each scaled score to
+// softcap * tanh(s / softcap) before the mask.  Each option is a template
+// parameter: with window 0 and softcap 0 the kernels are those without them.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int ielas_flash_attention(const void* q, const void* k, const void* v, void* out,
                                      int bh, int sq, int skv, int d, int dtype, int causal,
-                                     float scale, void* stream) {
+                                     int window, float scale, float softcap, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (bh < 1 || sq < 1 || skv < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return dispatch<false>(q, k, v, out, bh, sq, skv, d, causal, scale, s);
-  if (dtype == 1) return dispatch<true>(q, k, v, out, bh, sq, skv, d, causal, scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (bh < 1 || sq < 1 || skv < 1 || window < 0 || !(softcap >= 0.f))
+    return (int)cudaErrorInvalidValue;
+  if (window > 0 && (!causal || sq > skv)) return (int)cudaErrorInvalidValue;
+  const bool cap = softcap > 0.f, win = window > 0;
+  const ScoreMap f{scale * kLog2e, scale, softcap, cap ? 1.f / softcap : 0.f};
+  if (cap && win)
+    return dispatch_type<true, true>(q, k, v, out, bh, sq, skv, d, dtype, causal, window, f, s);
+  if (cap)
+    return dispatch_type<true, false>(q, k, v, out, bh, sq, skv, d, dtype, causal, 0, f, s);
+  if (win)
+    return dispatch_type<false, true>(q, k, v, out, bh, sq, skv, d, dtype, causal, window, f, s);
+  return dispatch_type<false, false>(q, k, v, out, bh, sq, skv, d, dtype, causal, 0, f, s);
 }

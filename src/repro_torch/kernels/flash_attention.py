@@ -8,6 +8,10 @@ fed by TMA, float32 on the CUDA cores); on CPU tensors it runs the plain
 version, :func:`repro_torch.kernels.ref.flash_attention_ref`.  The layout is
 the reference's: q (B, H, Sq, D), k and v (B, H, Skv, D), no grouped-query
 heads.  The kernel's tiles are fixed, so there are no block-size arguments.
+Beyond the Pallas kernel it takes gemma2's two options, a sliding window and
+a score softcap (the reference computes them in plain JAX,
+``repro/models/attention.py``), so that every attention of the LM path runs
+on it.
 """
 from __future__ import annotations
 
@@ -28,8 +32,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Query rows of a block in both kernels; the query tiles run on grid y.
 _QUERY_TILE = 128
 
-# ielas_flash_attention(q, k, v, out, bh, sq, skv, d, dtype, causal, scale, stream)
-ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+# ielas_flash_attention(q, k, v, out, bh, sq, skv, d, dtype, causal, window, scale,
+#                       softcap, stream)
+ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+            + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 
 
 @functools.cache
@@ -43,10 +49,16 @@ def flash_attention(
     v: torch.Tensor,          # (B, H, Skv, D)
     *,
     causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
 ) -> torch.Tensor:
-    """softmax(q k^T / sqrt(D)) v, computed in float32, in q's dtype
-    (float32 or bfloat16).  With ``causal`` key position j is visible to
-    query position i iff j <= i, both counted from 0."""
+    """softmax(s) v with s = q k^T / sqrt(D), computed in float32, in q's
+    dtype (float32 or bfloat16).  With ``softcap > 0`` each scaled score s
+    becomes ``softcap * tanh(s / softcap)`` before the mask.  With ``causal``
+    key position j is visible to query position i iff j <= i, both counted
+    from 0; with ``window > 0`` (causal only) also iff i - j < window, so row
+    i sees keys max(0, i - window + 1) .. i.  Masked scores are -1e30, as the
+    reference's."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be (B, H, S, D), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -57,11 +69,17 @@ def flash_attention(
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must all be float32 or bfloat16, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
+    if window < 0 or (window > 0 and (not causal or q.shape[2] > k.shape[2])):
+        raise ValueError(f"window must be 0, or > 0 with causal and Sq <= Skv (so that every "
+                         f"row sees its own position); got {window} with causal={causal}, "
+                         f"Sq {q.shape[2]}, Skv {k.shape[2]}")
+    if not (softcap >= 0.0 and math.isfinite(softcap)):
+        raise ValueError(f"softcap must be finite and >= 0, got {softcap}")
     device = q.device
     if k.device != device or v.device != device:
         raise ValueError("q, k and v must be on one device")
     if device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     if d not in HEAD_DIMS:
@@ -82,7 +100,9 @@ def flash_attention(
     with torch.cuda.device(device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  b * h, sq, k.shape[2], d, _DTYPES[q.dtype], int(causal),
-                 1.0 / math.sqrt(d), torch.cuda.current_stream(device).cuda_stream)
+                 min(int(window), 2**31 - 1),   # a wider window sees what 2^31 - 1 does
+                 1.0 / math.sqrt(d), float(softcap),
+                 torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError_t {err}")
     global launches

@@ -831,17 +831,27 @@ def flash_attention_ref(
     k: torch.Tensor,          # (B, H, Skv, D)
     v: torch.Tensor,          # (B, H, Skv, D)
     causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
 ) -> torch.Tensor:
     """Plain softmax attention in float32, cast to q's dtype -- what the
-    flash kernel must match.  With ``causal`` a key position j is visible
-    to query position i iff j <= i (both from 0); a masked score is -1e30,
-    not -inf."""
+    flash kernel must match.  Each score is scaled by 1 / sqrt(D), then,
+    with ``softcap > 0``, capped to ``softcap * tanh(s / softcap)``, then
+    masked (the reference's order, ``repro/models/attention.py``).  With
+    ``causal`` a key position j is visible to query position i iff j <= i
+    (both from 0), and with ``window > 0`` also iff i - j < window; a masked
+    score is -1e30, not -inf."""
     d = q.shape[-1]
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / (d ** 0.5)
+    if softcap > 0.0:
+        scores = softcap * torch.tanh(scores / softcap)
     if causal:
         sq, skv = q.shape[2], k.shape[2]
-        mask = (torch.arange(skv, device=q.device)[None, :]
-                <= torch.arange(sq, device=q.device)[:, None])
+        qpos = torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        mask = kpos <= qpos
+        if window > 0:
+            mask &= qpos - kpos < window
         scores = torch.where(mask, scores, -1e30)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())

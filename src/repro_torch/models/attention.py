@@ -1,16 +1,21 @@
-"""Attention: GQA with RoPE and a KV cache (counterpart of
-``repro/models/attention.py`` for global attention, ``LayerKind.ATTN``).
+"""Attention: GQA with RoPE, gemma2's softcap and sliding window, and a KV
+cache (counterpart of ``repro/models/attention.py`` for ``LayerKind.ATTN``
+and ``LayerKind.ATTN_LOCAL``).
 
 Both attention computations go to the hand-written flash kernel
 (:func:`repro_torch.kernels.flash_attention.flash_attention`), which runs its
 plain version on CPU tensors and launches ``csrc/flash_attention.cu`` on CUDA
-tensors, with no fallback between the two:
+tensors, with no fallback between the two.  The kernel caps each scaled
+score at ``cfg.attn_softcap`` (when > 0) before the mask, as the reference:
 
 - a full sequence from position 0 (the forward without a cache, and prefill
   into an empty cache; the reference's ``blockwise_attention``) is one causal
-  call;
+  call, with ``window=cfg.sliding_window`` on ``ATTN_LOCAL`` layers (row i
+  sees keys i - window + 1 .. i);
 - decode (one query against the cache; the reference's ``decode_attention``)
-  is one call over the cache's valid prefix, ``causal=False``.
+  is one call, ``causal=False``, over the cache's valid prefix or, on an
+  ``ATTN_LOCAL`` layer, its last ``window`` positions ``[max(0, n - window),
+  n)``: the reference's ``kv_pos > index - 1 - window``.
 
 The KV heads are expanded to the query heads first (the kernel has no
 grouped-query layout): KV head j serves query heads ``j*g .. j*g + g - 1``,
@@ -21,8 +26,7 @@ The cache holds bfloat16 whatever the model's dtype (as the reference's
 ``init_caches``); a float32 model reads it back as float32 (the float32
 kernel).  Unlike the reference, the port writes new keys and values into the
 cache's buffers in place and returns a :class:`KVCache` with the advanced
-index over the same buffers.  Sliding-window attention and the attention
-softcap (gemma2) wait for a kernel that has them (ROADMAP.md, queue 1).
+index over the same buffers.
 """
 from __future__ import annotations
 
@@ -34,6 +38,10 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import common
 from repro_torch.models.config import LayerKind, ModelConfig
+
+
+# The layer kinds this module computes: global and sliding-window attention.
+ATTN_KINDS = (LayerKind.ATTN, LayerKind.ATTN_LOCAL)
 
 
 @dataclasses.dataclass
@@ -100,12 +108,21 @@ def _expand_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
     return k.repeat_interleave(num_heads // kvh, dim=1)
 
 
-def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int = 0, softcap: float = 0.0) -> torch.Tensor:
     """q (B, Sq, H, D), k and v (B, Skv, KV, D) in q's dtype -> (B, Sq, H, D)
     through the flash kernel."""
     h = q.shape[2]
-    out = flash_attention(q.transpose(1, 2), _expand_kv(k, h), _expand_kv(v, h), causal=causal)
+    out = flash_attention(q.transpose(1, 2), _expand_kv(k, h), _expand_kv(v, h), causal=causal,
+                          window=window, softcap=softcap)
     return out.transpose(1, 2)
+
+
+def decode_span(n: int, window: int) -> tuple[int, int]:
+    """The cache positions [lo, n) that a decode query at position n - 1
+    attends over: the valid prefix, or with ``window > 0`` its last
+    ``window`` positions (the reference's ``kv_pos > index - 1 - window``)."""
+    return (max(0, n - window) if window > 0 else 0), n
 
 
 def cache_insert(buf: torch.Tensor, new: torch.Tensor, idx: int) -> torch.Tensor:
@@ -127,28 +144,31 @@ def attention_block(
     cache: Optional[KVCache] = None,
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Self-attention with optional cache. Returns (out, updated_cache)."""
-    if kind != LayerKind.ATTN or cfg.attn_softcap > 0.0:
-        raise NotImplementedError(f"{kind.value} attention with softcap {cfg.attn_softcap} is "
-                                  f"not ported yet (ROADMAP.md, queue 1)")
+    if kind not in ATTN_KINDS:
+        raise NotImplementedError(f"{kind.value} is not GQA attention (ROADMAP.md, queue 1)")
+    window = cfg.sliding_window if kind == LayerKind.ATTN_LOCAL else 0
+    cap = cfg.attn_softcap
     q, k, v = _project_qkv(params, x, cfg)
     q, k = _apply_pos(q, k, positions, cfg)
     b, s = x.shape[:2]
 
     if cache is None:
-        out = _attend(q, k, v, causal=True)
+        out = _attend(q, k, v, causal=True, window=window, softcap=cap)
         new_cache = None
     elif s == 1:
-        # decode: insert the token at cache.index, attend over the valid prefix.
-        n = cache.index + 1
+        # decode: insert the token at cache.index, attend over the valid
+        # prefix, or over its last `window` positions.
+        lo, n = decode_span(cache.index + 1, window)
         cache_insert(cache.k, k, cache.index)
         cache_insert(cache.v, v, cache.index)
-        out = _attend(q, cache.k[:, :n].to(q.dtype), cache.v[:, :n].to(q.dtype), causal=False)
+        out = _attend(q, cache.k[:, lo:n].to(q.dtype), cache.v[:, lo:n].to(q.dtype),
+                      causal=False, softcap=cap)
         new_cache = KVCache(k=cache.k, v=cache.v, index=n)
     elif cache.index == 0:
         # prefill into an empty cache.
         cache_insert(cache.k, k, 0)
         cache_insert(cache.v, v, 0)
-        out = _attend(q, k, v, causal=True)
+        out = _attend(q, k, v, causal=True, window=window, softcap=cap)
         new_cache = KVCache(k=cache.k, v=cache.v, index=s)
     else:
         # The reference's prefill at index > 0 attends over the new tokens

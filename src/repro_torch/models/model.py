@@ -1,15 +1,19 @@
-"""LMModel: the dense GQA decoder (counterpart of ``repro/models/model.py``
-for architectures made only of ``LayerKind.ATTN`` layers with a dense MLP:
-yi, qwen2.5, mistral-large).
+"""LMModel: the dense GQA decoders (counterpart of ``repro/models/model.py``
+for architectures made of ``LayerKind.ATTN`` and ``LayerKind.ATTN_LOCAL``
+layers with a dense MLP: yi, qwen2.5, mistral-large, gemma2).
 
-Each layer is RMSNorm -> GQA attention -> residual; RMSNorm -> MLP ->
-residual.  The layers are
-a ``ModuleList``, run one after another (the reference scans over stacked
-units).  The weights are held in ``cfg.dtype``, cast once (the reference
-keeps float32 and casts at every use, which gives the same values); the
-RMSNorm scales stay float32.  ``ATTN_LOCAL``, ``MLA``, ``MAMBA``, ``MLSTM``,
-``SLSTM``, MoE layers, the stub frontends and gemma2's options (softcaps,
-post-block norms, tied embeddings) raise ``NotImplementedError`` (ROADMAP.md,
+Each layer is RMSNorm -> GQA attention (global, or a sliding window on
+``ATTN_LOCAL``) -> residual; RMSNorm -> MLP -> residual, with gemma2's
+post-block RMSNorms on the attention and MLP outputs when
+``cfg.post_block_norm``.  The layers are a ``ModuleList``, run one after
+another in ``cfg.layer_kinds``'s order (the reference scans over stacked
+units).  gemma2's other options: the embedding scaled by sqrt(d_model) (cast
+to the model's dtype first, as the reference), tied embeddings (logits
+against ``embed``, no ``lm_head``), and the attention and logit softcaps.
+The weights are held in ``cfg.dtype``, cast once (the reference keeps
+float32 and casts at every use, which gives the same values); the RMSNorm
+scales stay float32.  ``MLA``, ``MAMBA``, ``MLSTM``, ``SLSTM``, MoE layers,
+M-RoPE and the stub frontends raise ``NotImplementedError`` (ROADMAP.md,
 queue 1); ``loss`` waits for the training slice.
 """
 from __future__ import annotations
@@ -34,15 +38,11 @@ def _param(shape, dtype, device) -> nn.Parameter:
 
 def _check_ported(cfg: ModelConfig) -> None:
     for i, kind in enumerate(cfg.layer_kinds):
-        if kind != LayerKind.ATTN:
+        if kind not in attention.ATTN_KINDS:
             raise NotImplementedError(f"{cfg.name}: layer {i} is {kind.value}; the port runs "
-                                      f"attn layers only (ROADMAP.md, queue 1)")
+                                      f"attn and attn_local layers only (ROADMAP.md, queue 1)")
     for what, unported in (("MoE layers", cfg.moe is not None),
                            (f"the {cfg.frontend} frontend", cfg.frontend != "none"),
-                           ("the attention softcap", cfg.attn_softcap > 0.0),
-                           ("the logit softcap", cfg.logit_softcap > 0.0),
-                           ("post-block norms", cfg.post_block_norm),
-                           ("tied embeddings", cfg.tie_embeddings),
                            (f"{cfg.pos_embedding} positions",
                             cfg.pos_embedding not in ("rope", "none"))):
         if unported:
@@ -51,11 +51,12 @@ def _check_ported(cfg: ModelConfig) -> None:
 
 
 class AttnLayer(nn.Module):
-    """One ``LayerKind.ATTN`` layer's weights."""
+    """One ``LayerKind.ATTN`` or ``ATTN_LOCAL`` layer's weights (``kind``)."""
 
-    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
+    def __init__(self, cfg: ModelConfig, kind: LayerKind, dtype: torch.dtype, device):
         super().__init__()
         d = cfg.d_model
+        self.kind = kind
         self.norm_attn = _param((d,), torch.float32, device)
         self.attn = nn.ParameterDict({name: _param(shape, dtype, device)
                                       for name, shape in attention.attn_shapes(cfg).items()})
@@ -63,6 +64,9 @@ class AttnLayer(nn.Module):
         self.mlp = nn.ParameterDict({name: _param(shape, dtype, device)
                                      for name, shape in mlp_shapes(d, cfg.d_ff,
                                                                    cfg.mlp_act).items()})
+        if cfg.post_block_norm:
+            self.post_norm_attn = _param((d,), torch.float32, device)
+            self.post_norm_mlp = _param((d,), torch.float32, device)
 
 
 def _apply_layer(layer: AttnLayer, x: torch.Tensor, positions: torch.Tensor,
@@ -70,10 +74,13 @@ def _apply_layer(layer: AttnLayer, x: torch.Tensor, positions: torch.Tensor,
     """Returns (x, new_cache)."""
     eps = cfg.norm_eps
     h = common.rms_norm(x, layer.norm_attn, eps)
-    h, new_cache = attention.attention_block(layer.attn, h, positions, cfg, LayerKind.ATTN,
-                                             cache)
+    h, new_cache = attention.attention_block(layer.attn, h, positions, cfg, layer.kind, cache)
+    if cfg.post_block_norm:
+        h = common.rms_norm(h, layer.post_norm_attn, eps)
     x = x + h
     h = mlp_block(layer.mlp, common.rms_norm(x, layer.norm_mlp, eps), cfg.mlp_act)
+    if cfg.post_block_norm:
+        h = common.rms_norm(h, layer.post_norm_mlp, eps)
     return x + h, new_cache
 
 
@@ -94,9 +101,10 @@ class LMModel(nn.Module):
         d, vocab = cfg.d_model, cfg.vocab_size
         self.embed = _param((vocab, d), self.dtype, self.device)
         self.final_norm = _param((d,), torch.float32, self.device)
-        self.lm_head = _param((d, vocab), self.dtype, self.device)
-        self.layers = nn.ModuleList(AttnLayer(cfg, self.dtype, self.device)
-                                    for _ in range(cfg.num_layers))
+        if not cfg.tie_embeddings:
+            self.lm_head = _param((d, vocab), self.dtype, self.device)
+        self.layers = nn.ModuleList(AttnLayer(cfg, kind, self.dtype, self.device)
+                                    for kind in cfg.layer_kinds)
 
     # ---------------- init ------------------------------------------------
     @torch.no_grad()
@@ -109,7 +117,9 @@ class LMModel(nn.Module):
         gen = torch.Generator(device=dev).manual_seed(seed)
         self.embed.copy_(common.embed_init(gen, tuple(self.embed.shape), device=dev))
         self.final_norm.zero_()
-        self.lm_head.copy_(common.dense_init(gen, (cfg.d_model, cfg.vocab_size), device=dev))
+        if not cfg.tie_embeddings:
+            self.lm_head.copy_(common.dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                                 device=dev))
         for layer in self.layers:
             for name, w in attention.init_attn_params(gen, cfg, dev).items():
                 layer.attn[name].copy_(w)
@@ -121,9 +131,17 @@ class LMModel(nn.Module):
         return self
 
     # ---------------- forward ----------------------------------------------
+    def _embed(self, inputs: torch.Tensor) -> torch.Tensor:
+        x = self.embed[inputs.long()]
+        if self.cfg.post_block_norm:       # gemma2 scales the embedding, in the model's dtype
+            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.dtype)
+        return x
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = common.rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return (x @ self.lm_head).float()
+        cfg = self.cfg
+        x = common.rms_norm(x, self.final_norm, cfg.norm_eps)
+        head = self.embed.T if cfg.tie_embeddings else self.lm_head
+        return common.softcap((x @ head).float(), cfg.logit_softcap)
 
     def apply(
         self,
@@ -139,7 +157,7 @@ class LMModel(nn.Module):
         if positions is None:
             start = 0 if caches is None else caches[0].index
             positions = (start + torch.arange(s, device=self.device)).expand(b, s)
-        x = self.embed[inputs.long()]
+        x = self._embed(inputs)
         new_caches = None if caches is None else []
         for i, layer in enumerate(self.layers):
             x, cache = _apply_layer(layer, x, positions, cfg,

@@ -5,7 +5,8 @@ the shapes and tolerances of tests/test_flash_attention.py (float32
 ``atol=2e-5, rtol=1e-5``; bfloat16 ``3e-2``).  The ``gpu`` cases hold the
 CUDA kernel against its plain version on a card (every head width, both
 dtypes, Sq above and below Skv, ragged tiles, more blocks than SMs, peaked
-scores, two calls bitwise equal) and skip here.  JAX is imported by a
+scores, two calls bitwise equal; gemma2's sliding window and softcap) and
+skip here.  JAX is imported by a
 fixture, so the ``gpu`` cases also run where JAX is not installed:
 
     python -m pytest -m gpu tests/test_torch_flash_attention.py
@@ -179,6 +180,39 @@ def test_kernel_deterministic_on_card(dtype, cuda_device):
     q, k, v = _on_card((1, 8, 640, 640, 128), dtype, cuda_device)
     first = port_flash.flash_attention(q, k, v, causal=True)
     assert torch.equal(first, port_flash.flash_attention(q, k, v, causal=True))
+
+
+# gemma2's options (B, H, Sq, Skv, D), window, softcap: windows inside one
+# tile, on a tile edge, across it, wider than the keys; the softcap with and
+# without a window, at the decode shape (full attention) and on ragged tiles.
+# With the softcap, q is scaled by 30, so that scaled scores span about
+# +-150 and the cap of 50 bites.
+ON_CARD_GEMMA2 = [
+    ((1, 3, 640, 640, 128), 100, 0.0),
+    ((1, 3, 640, 640, 128), 4097, 0.0),
+    ((1, 3, 640, 640, 64), 128, 0.0),
+    ((1, 3, 640, 640, 32), 129, 50.0),
+    ((1, 3, 640, 640, 16), 1, 50.0),
+    ((1, 3, 640, 640, 128), 100, 50.0),
+    ((1, 3, 640, 640, 128), 0, 50.0),
+    ((2, 3, 77, 141, 128), 50, 50.0),        # Sq < Skv, ragged
+    ((4, 32, 1, 31, 128), 0, 50.0),          # gemma2 decode
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol,rtol", ON_CARD_TOL)
+@pytest.mark.parametrize("shape,window,softcap", ON_CARD_GEMMA2,
+                         ids=lambda c: "x".join(map(str, c)) if isinstance(c, tuple) else str(c))
+def test_kernel_window_softcap_on_card(shape, window, softcap, dtype, atol, rtol, cuda_device):
+    causal = shape[2] > 1
+    q, k, v = _on_card(shape, dtype, cuda_device, q_scale=30.0 if softcap else 1.0)
+    before = port_flash.launches
+    got = port_flash.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert port_flash.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
 @pytest.mark.gpu

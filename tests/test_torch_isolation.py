@@ -1,6 +1,6 @@
 """The port stands alone: nothing under src/repro_torch/, in chip_smoke.py,
-dense_profile.py, stage_profile.py or service_profile.py imports jax or the
-reference package, and importing the port loads no jax."""
+dense_profile.py, flash_profile.py, stage_profile.py or service_profile.py
+imports jax or the reference package, and importing the port loads no jax."""
 import ast
 import os
 import subprocess
@@ -11,8 +11,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "dense_profile.py", ROOT / "stage_profile.py",
-    ROOT / "service_profile.py",
+    ROOT / "chip_smoke.py", ROOT / "dense_profile.py", ROOT / "flash_profile.py",
+    ROOT / "stage_profile.py", ROOT / "service_profile.py",
 ]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -75,7 +75,8 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.serving.stereo_service, repro_torch.serving.warmstart, "
         "repro_torch.launch.serve, repro_torch.configs, repro_torch.models, "
         "repro_torch.models.model, repro_torch.models.attention, repro_torch.models.mlp, "
-        "repro_torch.models.common, repro_torch.serving.engine, repro_torch.device\n"
+        "repro_torch.models.common, repro_torch.serving.engine, repro_torch.device, "
+        "repro_torch.configs.gemma2_27b\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -4,7 +4,9 @@ block (no cache, and decode step by step against the reference's
 ``KVCache``), ``LMModel.apply`` for yi-9b, qwen2.5-32b (with qkv biases) and
 mistral-large-123b, all reduced, and tests/test_serve_engine.py's TINY, on
 weights carried across with ``params_from_reference``; the configs field for
-field and ``count_params`` full and reduced; and what the port does not run.
+field and ``count_params`` full and reduced; gemma2's options each alone on
+TINY (gemma2 itself: tests/test_torch_gemma2.py); and what the port does not
+run.
 
 Tolerances (reasons in tests/torch_lm_cases.py): float32 ``atol = rtol =
 1e-5`` and equal greedy tokens; bfloat16 logits within 0.0625 and tokens
@@ -313,30 +315,67 @@ def test_yi_9b_full_width_count():
 
 
 def test_registry_covers_the_ported_archs_only():
-    assert port_configs.ARCH_IDS == cases.ARCHS
-    assert set(port_configs.all_configs(reduced=True)) == set(cases.ARCHS)
+    ported = (*cases.ARCHS, "gemma2-27b")       # gemma2: tests/test_torch_gemma2.py
+    assert port_configs.ARCH_IDS == ported
+    assert set(port_configs.all_configs(reduced=True)) == set(ported)
     for arch in ("xlstm-350m", "deepseek-v2-lite-16b", "deepseek-v2-236b", "qwen2-vl-7b",
-                 "gemma2-27b", "jamba-1.5-large-398b", "musicgen-large"):
+                 "jamba-1.5-large-398b", "musicgen-large"):
         with pytest.raises(KeyError, match="not ported yet"):
             port_configs.get_config(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         port_configs.get_config("llama-7b")
 
 
+# gemma2's options, each alone on TINY, at values that bite at TINY's
+# magnitudes (scores and logits ~N(0, 1)): a window of 4 of 12 positions,
+# caps of 0.5.
+GEMMA2_OPTIONS = {
+    "attn_local": dict(pattern_unit=(LayerKind.ATTN_LOCAL, LayerKind.ATTN), sliding_window=4),
+    "attn_softcap": dict(attn_softcap=0.5),
+    "logit_softcap": dict(logit_softcap=0.5),
+    "post_block_norm": dict(post_block_norm=True),
+    "tie_embeddings": dict(tie_embeddings=True),
+}
+
+
+@pytest.mark.parametrize("change", GEMMA2_OPTIONS.values(), ids=GEMMA2_OPTIONS.keys())
+def test_gemma2_option_alone_matches_reference(change):
+    """float32, with and without a cache (float32 caches on both sides: see
+    tests/test_torch_gemma2.py).  Tied embeddings make the logits, and their
+    rounding differences, sqrt(d_model) = 8 times larger (the head's rows are
+    unit normals, not fan-in normals), so the absolute tolerance is 8 times
+    F32_TOL's there."""
+    ref_cfg, cfg = (dataclasses.replace(c, dtype="float32", **change)
+                    for c in (cases.REF_TINY, cases.TINY))
+    ref = cases.RefModel(ref_cfg)
+    tree = jax.tree.map(np.asarray, ref.init(jax.random.PRNGKey(13)))
+    port = LMModel(cfg, device="cpu")
+    port.load_state_dict(params_from_reference(cfg, tree))
+    assert count_params(cfg) == ref_count_params(ref_cfg)
+    params = jax.tree.map(jnp.asarray, tree)
+    ref_apply = jax.jit(lambda p, t, c: ref.apply(p, t, caches=c)[:2])
+    tol = dict(cases.F32_TOL)
+    if cfg.tie_embeddings:
+        tol["atol"] *= cfg.d_model ** 0.5
+    toks = cases.tokens(cfg.vocab_size, (2, 12), seed=13)
+    want = np.asarray(ref_apply(params, jnp.asarray(toks), None)[0])
+    got, _ = cases.port_logits(port, toks)
+    np.testing.assert_allclose(got, want, **tol)
+    ref_caches, caches = ref.init_caches(2, 12, jnp.float32), port.init_caches(2, 12, torch.float32)
+    for t in range(12):
+        want, ref_caches = ref_apply(params, jnp.asarray(toks[:, t:t + 1]), ref_caches)
+        got, caches = cases.port_logits(port, toks[:, t:t + 1], caches)
+        np.testing.assert_allclose(got, np.asarray(want), **tol)
+
+
 @pytest.mark.parametrize("change", [
-    dict(pattern_unit=(LayerKind.ATTN_LOCAL, LayerKind.ATTN)),
     dict(pattern_unit=(LayerKind.MLA,)),
     dict(pattern_unit=(LayerKind.MAMBA,), mamba=MambaConfig()),
     dict(pattern_unit=(LayerKind.MLSTM, LayerKind.SLSTM)),
     dict(moe=MoeConfig(num_experts=4, top_k=2, d_expert=32)),
-    dict(attn_softcap=50.0),
-    dict(logit_softcap=30.0),
-    dict(post_block_norm=True),
-    dict(tie_embeddings=True),
     dict(pos_embedding="mrope"),
     dict(frontend="audio_stub"),
-], ids=["attn_local", "mla", "mamba", "xlstm", "moe", "attn_softcap", "logit_softcap",
-        "post_block_norm", "tie_embeddings", "mrope", "frontend"])
+], ids=["mla", "mamba", "xlstm", "moe", "mrope", "frontend"])
 def test_unported_layers_raise(change):
     cfg = dataclasses.replace(cases.TINY, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
