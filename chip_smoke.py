@@ -120,7 +120,18 @@ Phases (any failure exits nonzero):
     bfloat16), made after phase 11's model is freed; its logit cap rounds
     nearly every greedy token's top logits to a tie at 30.0, so the kernel
     path is held to the plain path by the logits before the cap;
-13. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
+13. the same for deepseek-v2-lite-16b at full width (27 MLA layers, the
+    first with a dense MLP, the rest static-capacity MoE of 64 routed
+    experts, top-6, and 2 shared; 15,706,470,400 parameters, 29.26 GiB):
+    no flash launch (MLA's attention is plain PyTorch), no token dropped by
+    the MoE at any decode step, no kernel-vs-plain comparison (nothing to
+    swap); the reduced float32 model against the CPU and ``serve lm --arch
+    deepseek-v2-lite-16b`` as in phase 11;
+14. deepseek-v2-236b cut to its first LM_CUT_LAYERS = 4 layers at full
+    widths (q-LoRA queries, 160 experts; 13,302,903,808 parameters, 24.78
+    GiB): one wave of 4 requests, no flash launch, no token dropped, a
+    profiled step, and the reduced float32 model against the CPU;
+15. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
 
 Every time is printed with the card's name and power limit.  Each profiled
 frame or wave also leaves its device-side rows, by time, in
@@ -247,11 +258,16 @@ WARM_BAND = 8             # the service's default warm band
 VIDEO_FRAMES = 5          # frames of the warm video phase
 VIDEO_CUT = 3             # its scene cut
 BASELINE_FRAMES = 4       # the hybrid baseline: one warm-up frame and three timed
-# LM serving (phases 11 and 12): yi-9b, then gemma2-27b, each at full width,
-# all layers, bfloat16, seeded weights; ServeEngine(batch=4, max_len=33) on 8
-# requests of 4-16 prompt tokens (np.random.default_rng(0), drawn as the
-# launcher's serve_lm draws them) and 16 new tokens each.
-LM_ARCHS = ("yi-9b", "gemma2-27b")
+# LM serving (phases 11-14): yi-9b, gemma2-27b and deepseek-v2-lite-16b, each
+# at full width, all layers, bfloat16, seeded weights; ServeEngine(batch=4,
+# max_len=33) on 8 requests of 4-16 prompt tokens (np.random.default_rng(0),
+# drawn as the launcher's serve_lm draws them) and 16 new tokens each; then
+# deepseek-v2-236b (439 GiB in bfloat16, more than the card) cut to its
+# first LM_CUT_LAYERS layers at full widths (one dense, three MoE of 160
+# experts; 13,302,903,808 parameters, 24.78 GiB), on the first 4 requests.
+LM_CUT_LAYERS = 4
+LM_ARCHS = (("yi-9b", 0), ("gemma2-27b", 0), ("deepseek-v2-lite-16b", 0),
+            ("deepseek-v2-236b", LM_CUT_LAYERS))
 LM_BATCH = 4
 LM_REQUESTS = 8
 LM_PROMPT_LEN = 16
@@ -1730,39 +1746,59 @@ def main() -> int:
         if cpu_mism:
             raise AssertionError(f"baseline {cfg.name}: card vs CPU differ in {cpu_mism} pixels")
 
-    # ---- 11, 12. LM serving ---------------------------------------------------
-    # A dense GQA decoder through ServeEngine: every attention of the path is
-    # a flash kernel launch (decode: one query against the cache's valid
-    # prefix, or on gemma2's local layers its last 4096 positions), the
-    # projections and the MLP are torch matmuls.  yi-9b (phase 11), then
-    # gemma2-27b (phase 12: sliding window and softcap in the kernel), each at
-    # full width; the first is freed before the second is made.
+    # ---- 11-14. LM serving ------------------------------------------------
+    # The decoders through ServeEngine.  On a GQA layer every attention is a
+    # flash kernel launch (decode: one query against the cache's valid
+    # prefix, or on gemma2's local layers its last 4096 positions); an MLA
+    # layer's attention is plain PyTorch (the absorbed decode) and launches
+    # none; the projections, the MLP and the MoE experts are torch matmuls.
+    # yi-9b (phase 11), gemma2-27b (phase 12: sliding window and softcap in
+    # the kernel), deepseek-v2-lite-16b (phase 13: MLA and static-capacity
+    # MoE), each at full width, then deepseek-v2-236b cut to LM_CUT_LAYERS
+    # layers (phase 14: q-LoRA, 160 experts); each model is freed before the
+    # next is made.
     from repro_torch.configs import get_config
     from repro_torch.models import attention as attention_mod
     from repro_torch.models import common as common_mod
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models.model import LMModel, count_params
     from repro_torch.serving import ServeEngine, decode_step
     from repro_torch.serving import engine as engine_mod
 
-    def serve_lm_phase(phase: int, arch: str):
+    def serve_lm_phase(phase: int, arch: str, cut: int = 0):
         cfg = get_config(arch)
+        if cut:
+            cfg = dataclasses.replace(cfg, num_layers=cut)
         capped = cfg.logit_softcap > 0.0
+        n_attn = sum(k in attention_mod.ATTN_KINDS for k in cfg.layer_kinds)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         model = LMModel(cfg).init(0)                    # on cuda:0
         torch.cuda.synchronize()
+        if cfg.mla is not None:
+            m, e = cfg.mla, cfg.moe
+            shape = (f"{cfg.num_heads} heads, MLA latent {m.kv_lora_rank} + rope "
+                     f"{m.rope_head_dim}, nope {m.nope_head_dim}, v {m.v_head_dim}, q_lora "
+                     f"{m.q_lora_rank}, d_ff {cfg.d_ff} (layer 0), MoE {e.num_experts} routed "
+                     f"top-{e.top_k} + {e.num_shared} shared of {e.d_expert}, "
+                     f"{count_params(cfg, active_only=True)} active")
+        else:
+            shape = (f"{cfg.num_heads} heads ({cfg.num_kv_heads} KV) of {cfg.head_dim}, d_ff "
+                     f"{cfg.d_ff}, window "
+                     f"{cfg.sliding_window if len(set(cfg.layer_kinds)) > 1 else 'none'}, "
+                     f"softcaps {cfg.attn_softcap} / {cfg.logit_softcap}")
         print(f"lm {cfg.name} (phase {phase}): {count_params(cfg)} parameters, "
-              f"{cfg.num_layers} layers {'/'.join(k.value for k in cfg.pattern_unit)} (no cut), "
-              f"d_model {cfg.d_model}, {cfg.num_heads} heads ({cfg.num_kv_heads} KV) of "
-              f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}, "
-              f"window {cfg.sliding_window if len(set(cfg.layer_kinds)) > 1 else 'none'}, "
-              f"softcaps {cfg.attn_softcap} / {cfg.logit_softcap}, seeded weights made on the "
-              f"card in {time.perf_counter() - t0:.2f} s; "
+              f"{cfg.num_layers} layers {'/'.join(k.value for k in cfg.pattern_unit)} "
+              f"({f'cut from {get_config(arch).num_layers}: dataclasses.replace(cfg, num_layers={cut}), full widths' if cut else 'no cut'}), "
+              f"d_model {cfg.d_model}, {shape}, vocab {cfg.vocab_size}, {cfg.dtype}, seeded "
+              f"weights made on the card in {time.perf_counter() - t0:.2f} s; "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated {card}")
         rng = np.random.default_rng(0)
         prompts = [rng.integers(0, cfg.vocab_size, size=rng.integers(4, LM_PROMPT_LEN + 1))
                    for _ in range(LM_REQUESTS)]
-        waves = [prompts[i:i + LM_BATCH] for i in range(0, LM_REQUESTS, LM_BATCH)]
+        if cut:                                         # one wave
+            prompts = prompts[:LM_BATCH]
+        waves = [prompts[i:i + LM_BATCH] for i in range(0, len(prompts), LM_BATCH)]
         steps = sum(max(len(p) + LM_NEW - 1 for p in wave) for wave in waves)
         engine = ServeEngine(model, batch=LM_BATCH, max_len=LM_MAX_LEN)
         engine.generate(waves[0], 2)                    # warm-up: cuBLAS, the first launches
@@ -1788,29 +1824,60 @@ def main() -> int:
         finally:
             engine_mod.decode_step = decode_step
         counts = read_counts()
-        expect = {k: cfg.num_layers * steps if k == "flash_attention" else 0 for k in launches}
+        # flash: one launch per GQA layer per decode step, none on MLA layers
+        expect = {k: n_attn * steps if k == "flash_attention" else 0 for k in launches}
         if counts != expect:
             raise AssertionError(f"lm {cfg.name}: launches {counts} in {steps} decode steps, "
                                  f"expected {expect}")
         for k in launches:
             launches[k] += counts[k]
-        if (len(outs) != LM_REQUESTS or any(len(o) != LM_NEW for o in outs)
+        if (len(outs) != len(prompts) or any(len(o) != LM_NEW for o in outs)
                 or not all(0 <= t < cfg.vocab_size for o in outs for t in o)):
             raise AssertionError(f"lm {cfg.name}: requests got {[len(o) for o in outs]} tokens, "
                                  f"or a token outside the vocabulary")
-        again = engine.generate(prompts, LM_NEW)
-        if again != outs:
-            raise AssertionError(f"lm {cfg.name}: a second generate gave other tokens")
+        if not cut:
+            again = engine.generate(prompts, LM_NEW)
+            if again != outs:
+                raise AssertionError(f"lm {cfg.name}: a second generate gave other tokens")
         step_ms = [a.elapsed_time(b) for a, b in step_events]
         tokens = sum(len(o) for o in outs)
         print(f"lm serve {cfg.name} ServeEngine(batch={LM_BATCH}, max_len={LM_MAX_LEN}): "
-              f"{LM_REQUESTS} requests, {tokens} tokens in {len(waves)} waves of {steps} decode "
+              f"{len(prompts)} requests, {tokens} tokens in {len(waves)} waves of {steps} decode "
               f"steps, {wall:.3f} s wall = {tokens / wall:.2f} tokens/s; decode step median "
               f"{median_of(step_ms):.3f} ms, min {min(step_ms):.3f}, max {max(step_ms):.3f} "
-              f"(CUDA events); flash launches {counts['flash_attention']} = {cfg.num_layers} "
-              f"layers x {steps} steps; a second generate gives the same tokens; "
+              f"(CUDA events); flash launches {counts['flash_attention']} = {n_attn} GQA "
+              f"layers x {steps} steps"
+              f"{'' if cut else '; a second generate gives the same tokens'}; "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, peak "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
+
+        if cfg.moe is not None:
+            # The MoE's dropped share at every decode step of the phase's waves
+            # (decode_step discards it): at batch 4 a layer routes 4 tokens x
+            # top_k, at most 4 to an expert, which its capacity of 4 holds.
+            dropped = []
+
+            @torch.inference_mode()
+            def recording_step(model, caches, tokens):
+                logits, caches, aux = model.apply(tokens, caches=caches)
+                dropped.append(aux["fraction_dropped"])
+                return caches, torch.argmax(logits[:, -1, :], dim=-1)
+
+            engine_mod.decode_step = recording_step
+            try:
+                again = engine.generate(prompts, LM_NEW)
+            finally:
+                engine_mod.decode_step = decode_step
+            dropped = torch.stack(dropped).cpu()
+            moe_layers = sum(layer.is_moe for layer in model.layers)
+            print(f"lm moe {cfg.name}: fraction_dropped summed over {moe_layers} MoE layers, "
+                  f"at each of {len(dropped)} decode steps: max {float(dropped.max())}, "
+                  f"capacity {moe_mod._capacity(LM_BATCH, cfg.moe)} slots an expert for "
+                  f"{LM_BATCH} x top-{cfg.moe.top_k} choices; tokens "
+                  f"{'equal' if again == outs else 'DIFFER'} to the timed run's {card}")
+            if float(dropped.abs().max()) != 0.0 or again != outs:
+                raise AssertionError(f"lm {cfg.name}: MoE dropped tokens at decode, or the "
+                                     f"recording run's tokens differ")
 
         def mid_wave_step():
             """The caches of wave 0 after its longest prompt, then one decode
@@ -1828,113 +1895,121 @@ def main() -> int:
         # cuBLAS's kernels: nvjet_* on this toolkit, *gemm* / *gemv* on others
         gemm_us = sum(r[0] for r in rows if any(w in r[2].lower() for w in
                                                 ("nvjet", "gemm", "gemv", "xmma", "cutlass")))
-        # The GQA expansion of k and v for the kernel (attention._expand_kv), one
-        # layer's traced alone at the step's shapes (the cache's valid prefix of
-        # LM_PROMPT_LEN + 1 positions), times the layers.
-        n = LM_PROMPT_LEN + 1
-        kv = [torch.zeros((LM_BATCH, LM_MAX_LEN, cfg.num_kv_heads, cfg.head_dim),
-                          dtype=torch.bfloat16, device=dev) for _ in range(2)]
+        expansion = ""
+        if n_attn:
+            # The GQA expansion of k and v for the kernel (attention._expand_kv),
+            # one layer's traced alone at the step's shapes (the cache's valid
+            # prefix of LM_PROMPT_LEN + 1 positions), times the GQA layers.
+            n = LM_PROMPT_LEN + 1
+            kv = [torch.zeros((LM_BATCH, LM_MAX_LEN, cfg.num_kv_heads, cfg.head_dim),
+                              dtype=torch.bfloat16, device=dev) for _ in range(2)]
 
-        def expand():
-            return [attention_mod._expand_kv(t[:, :n], cfg.num_heads) for t in kv]
+            def expand():
+                return [attention_mod._expand_kv(t[:, :n], cfg.num_heads) for t in kv]
 
-        exp_us = queued_ms(expand, 50, "the KV expansion")[0] * 1e3 * cfg.num_layers
-        # a trace only loses records: the fullest of three counts the operations
-        exp_rows = max((traced_rows(expand, 10, "the KV expansion") for _ in range(3)),
-                       key=lambda t: sum(r[1] for r in t))
-        exp_ops = sum(r[1] for r in exp_rows) // 10 * cfg.num_layers
-        del kv
+            exp_us = queued_ms(expand, 50, "the KV expansion")[0] * 1e3 * n_attn
+            # a trace only loses records: the fullest of three counts the operations
+            exp_rows = max((traced_rows(expand, 10, "the KV expansion") for _ in range(3)),
+                           key=lambda t: sum(r[1] for r in t))
+            exp_ops = sum(r[1] for r in exp_rows) // 10 * n_attn
+            del kv
+            expansion = (f", the KV expansion for the kernel {exp_us:.1f} us "
+                         f"({100 * exp_us / max(busy, 1e-9):.1f}%; {exp_ops} device operations, "
+                         f"{n_attn} layers x one timed alone: "
+                         f"{sorted({r[2][:40] for r in exp_rows})})")
         print(f"lm profile {cfg.name} decode step (batch {LM_BATCH}, cache index "
               f"{LM_PROMPT_LEN}): device busy {busy:.1f} us of {wall_us:.1f} us wall under the "
               f"profiler ({100 * busy / wall_us:.1f}%; "
               f"{100 * busy / 1e3 / median_of(step_ms):.1f}% of the median unprofiled step), "
               f"flash {flash_us:.1f} us "
               f"({100 * flash_us / max(busy, 1e-9):.1f}% of busy), matmuls {gemm_us:.1f} us "
-              f"({100 * gemm_us / max(busy, 1e-9):.1f}%), the KV expansion for the kernel "
-              f"{exp_us:.1f} us ({100 * exp_us / max(busy, 1e-9):.1f}%; {exp_ops} device "
-              f"operations, {cfg.num_layers} layers x one timed alone: "
-              f"{sorted({r[2][:40] for r in exp_rows})}), {sum(r[1] for r in rows)} device "
-              f"operations {card}")
+              f"({100 * gemm_us / max(busy, 1e-9):.1f}%){expansion}, "
+              f"{sum(r[1] for r in rows)} device operations "
+              f"({sum(r[1] for r in rows) / cfg.num_layers:.0f} a layer) {card}")
 
-        # The kernel against its plain version on this path: wave 0 again,
-        # every step's logits kept (and, with a logit softcap, the logits
-        # before it), once through the kernel and once with the attention's
-        # kernel call swapped for the plain version (here only, not in the
-        # package).
-        def logged_wave():
-            log, pre = [], []
-            logits_of = model._logits
+        if n_attn:
+            # The kernel against its plain version on this path: wave 0 again,
+            # every step's logits kept (and, with a logit softcap, the logits
+            # before it), once through the kernel and once with the attention's
+            # kernel call swapped for the plain version (here only, not in the
+            # package).
+            def logged_wave():
+                log, pre = [], []
+                logits_of = model._logits
 
-            def logits_and_pre(x):
-                if capped:
-                    h = common_mod.rms_norm(x[:, -1], model.final_norm, cfg.norm_eps)
-                    pre.append((h @ model.embed.T).float())
-                return logits_of(x)
+                def logits_and_pre(x):
+                    if capped:
+                        h = common_mod.rms_norm(x[:, -1], model.final_norm, cfg.norm_eps)
+                        pre.append((h @ model.embed.T).float())
+                    return logits_of(x)
 
-            @torch.inference_mode()
-            def step(model, caches, tokens):
-                logits, caches, _ = model.apply(tokens, caches=caches)
-                log.append(logits[:, -1].clone())
-                return caches, torch.argmax(logits[:, -1], dim=-1)
+                @torch.inference_mode()
+                def step(model, caches, tokens):
+                    logits, caches, _ = model.apply(tokens, caches=caches)
+                    log.append(logits[:, -1].clone())
+                    return caches, torch.argmax(logits[:, -1], dim=-1)
 
-            engine_mod.decode_step = step
-            model._logits = logits_and_pre
+                engine_mod.decode_step = step
+                model._logits = logits_and_pre
+                try:
+                    toks = ServeEngine(model, LM_BATCH, LM_MAX_LEN).generate(waves[0], LM_NEW)
+                finally:
+                    engine_mod.decode_step = decode_step
+                    del model._logits
+                return toks, torch.stack(log), torch.stack(pre if capped else log)
+
+            k_toks, k_logits, k_pre = logged_wave()
+            attention_mod.flash_attention = ref.flash_attention_ref
             try:
-                toks = ServeEngine(model, LM_BATCH, LM_MAX_LEN).generate(waves[0], LM_NEW)
+                p_toks, p_logits, p_pre = logged_wave()
             finally:
-                engine_mod.decode_step = decode_step
-                del model._logits
-            return toks, torch.stack(log), torch.stack(pre if capped else log)   # (steps, B, V)
-
-        k_toks, k_logits, k_pre = logged_wave()
-        attention_mod.flash_attention = ref.flash_attention_ref
-        try:
-            p_toks, p_logits, p_pre = logged_wave()
-        finally:
-            attention_mod.flash_attention = flash_kernel.flash_attention
-        if k_toks != outs[:LM_BATCH]:
-            raise AssertionError(f"lm {cfg.name}: the logged kernel run's tokens differ from "
-                                 f"generate's")
-        top = float(p_pre.topk(2, dim=-1).values[..., 1].max())
-        delta = LM_LOGIT_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
-        held = low = after = after_equal = 0
-        first_delta = float((k_pre[0] - p_pre[0]).abs().max())
-        max_delta = 0.0
-        top2 = p_logits.topk(2, dim=-1).values
-        margins = (top2[..., 0] - top2[..., 1]).cpu()
-        for i, prompt in enumerate(waves[0]):
-            start = len(prompt) - 1                     # the step of the first new token
-            j = 0
-            while j < LM_NEW:                           # inputs equal on both paths so far
-                margin = float(margins[start + j, i])
-                max_delta = max(max_delta, float((k_pre[start + j, i]
-                                                  - p_pre[start + j, i]).abs().max()))
-                if k_toks[i][j] != p_toks[i][j]:
-                    if margin > 2 * delta:
-                        raise AssertionError(
-                            f"lm {cfg.name}: request {i} token {j}: the kernel path gives "
-                            f"{k_toks[i][j]}, the plain path {p_toks[i][j]}, with plain top-2 "
-                            f"margin {margin} > {2 * delta}")
-                    break
-                held, low = held + (margin > 2 * delta), low + (margin <= 2 * delta)
-                j += 1
-            for t in range(start):                      # the prompt's steps
-                max_delta = max(max_delta, float((k_pre[t, i] - p_pre[t, i]).abs().max()))
-            after += LM_NEW - j
-            after_equal += sum(a == b for a, b in zip(k_toks[i][j:], p_toks[i][j:]))
-        what = "pre-cap logit" if capped else "logit"
-        print(f"lm kernel vs plain attention {cfg.name} wave 0 ({LM_BATCH} requests x {LM_NEW} "
-              f"tokens): largest second-best {what} {top:.4g}, so delta = {LM_LOGIT_ULPS} "
-              f"bfloat16 steps "
-              f"of its binade = {delta:g}; first step max |d {what}| {first_delta:.6f}, max over "
-              f"steps with equal inputs {max_delta:.6f}; while the inputs are equal, {held} "
-              f"tokens with plain top-2 margin > {2 * delta:g} (gated) and {low} under it all "
-              f"equal; from each request's first differing token on, {after_equal} of {after} "
-              f"equal (not gated) {card}")
-        if max_delta > delta:
-            raise AssertionError(f"lm {cfg.name}: the kernel path's {what}s differ from the plain "
-                                 f"path's by {max_delta} > {delta} with equal inputs")
-        del k_logits, p_logits, k_pre, p_pre, model, engine
+                attention_mod.flash_attention = flash_kernel.flash_attention
+            if k_toks != outs[:LM_BATCH]:
+                raise AssertionError(f"lm {cfg.name}: the logged kernel run's tokens differ "
+                                     f"from generate's")
+            top = float(p_pre.topk(2, dim=-1).values[..., 1].max())
+            delta = LM_LOGIT_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+            held = low = after = after_equal = 0
+            first_delta = float((k_pre[0] - p_pre[0]).abs().max())
+            max_delta = 0.0
+            top2 = p_logits.topk(2, dim=-1).values
+            margins = (top2[..., 0] - top2[..., 1]).cpu()
+            for i, prompt in enumerate(waves[0]):
+                start = len(prompt) - 1                 # the step of the first new token
+                j = 0
+                while j < LM_NEW:                       # inputs equal on both paths so far
+                    margin = float(margins[start + j, i])
+                    max_delta = max(max_delta, float((k_pre[start + j, i]
+                                                      - p_pre[start + j, i]).abs().max()))
+                    if k_toks[i][j] != p_toks[i][j]:
+                        if margin > 2 * delta:
+                            raise AssertionError(
+                                f"lm {cfg.name}: request {i} token {j}: the kernel path gives "
+                                f"{k_toks[i][j]}, the plain path {p_toks[i][j]}, with plain "
+                                f"top-2 margin {margin} > {2 * delta}")
+                        break
+                    held, low = held + (margin > 2 * delta), low + (margin <= 2 * delta)
+                    j += 1
+                for t in range(start):                  # the prompt's steps
+                    max_delta = max(max_delta, float((k_pre[t, i] - p_pre[t, i]).abs().max()))
+                after += LM_NEW - j
+                after_equal += sum(a == b for a, b in zip(k_toks[i][j:], p_toks[i][j:]))
+            what = "pre-cap logit" if capped else "logit"
+            print(f"lm kernel vs plain attention {cfg.name} wave 0 ({LM_BATCH} requests x "
+                  f"{LM_NEW} tokens): largest second-best {what} {top:.4g}, so delta = "
+                  f"{LM_LOGIT_ULPS} bfloat16 steps of its binade = {delta:g}; first step max "
+                  f"|d {what}| {first_delta:.6f}, max over steps with equal inputs "
+                  f"{max_delta:.6f}; while the inputs are equal, {held} tokens with plain top-2 "
+                  f"margin > {2 * delta:g} (gated) and {low} under it all equal; from each "
+                  f"request's first differing token on, {after_equal} of {after} equal (not "
+                  f"gated) {card}")
+            if max_delta > delta:
+                raise AssertionError(f"lm {cfg.name}: the kernel path's {what}s differ from the "
+                                     f"plain path's by {max_delta} > {delta} with equal inputs")
+            del k_logits, p_logits, k_pre, p_pre
+        del model, engine
+        gc.collect()
+        torch.cuda.empty_cache()
 
         # The reduced model in float32 on the card against the port's CPU run.
         cfg32 = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
@@ -1973,22 +2048,26 @@ def main() -> int:
         if toks_card != toks_cpu:
             raise AssertionError(f"lm float32 {cfg32.name}: card tokens differ from the CPU's")
 
+        if cut:
+            return
         reset_counts()
         rc = serve_launch.main(["lm", "--device", "cuda", "--arch", arch])
         counts = read_counts()
         print(f"serve lm --arch {arch} (repro_torch.launch.serve, {arch}-reduced): exit {rc}, "
               f"launches {counts} {card}")
-        if rc != 0 or counts["flash_attention"] == 0:
-            raise AssertionError("the lm serve launcher failed or launched no flash kernel")
+        # flash launches on the reduced model's GQA layers only
+        if rc != 0 or (counts["flash_attention"] > 0) != (n_attn > 0):
+            raise AssertionError(f"the lm serve launcher failed, or launched flash "
+                                 f"{counts['flash_attention']} times on {n_attn} GQA layers")
         for k in launches:
             launches[k] += counts[k]
 
-    for phase, arch in enumerate(LM_ARCHS, start=11):
-        serve_lm_phase(phase, arch)
+    for phase, (arch, cut) in enumerate(LM_ARCHS, start=11):
+        serve_lm_phase(phase, arch, cut)
         gc.collect()
         torch.cuda.empty_cache()
 
-    # ---- 13. summary -------------------------------------------------------
+    # ---- 15. summary -------------------------------------------------------
     shown = {"flash_attention": f"yi-9b decode bfloat16 Skv={FLASH_DECODE[-1][3]}"}
     entries = []
     for kname, _, _, source, replaces in kernels:

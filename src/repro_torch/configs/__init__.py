@@ -2,11 +2,13 @@
 architecture registry (counterpart of ``repro.configs``): ``--arch <id>`` ->
 ``ModelConfig`` (full and reduced).
 
-The port runs the dense GQA decoders: every layer ``LayerKind.ATTN`` or
-``ATTN_LOCAL`` with a dense MLP (yi, qwen2.5, mistral-large; gemma2 with its
-sliding window, softcaps, post-block norms, GeGLU and tied embeddings).  The
-reference's other architectures are not ported yet: asking for one raises
-``KeyError`` that says so (ROADMAP.md, queue 1).
+The port runs the decoders made of attention layers: the dense GQA decoders,
+every layer ``LayerKind.ATTN`` or ``ATTN_LOCAL`` with a dense MLP (yi,
+qwen2.5, mistral-large; gemma2 with its sliding window, softcaps, post-block
+norms, GeGLU and tied embeddings), and deepseek-v2 (``LayerKind.MLA`` layers,
+a dense first layer, then static-capacity MoE; the 236b with low-rank
+queries).  The reference's other architectures are not ported yet: asking
+for one raises ``KeyError`` that says so (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -19,12 +21,11 @@ _ARCH_MODULES = {
     "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
     "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
     "gemma2-27b": "repro_torch.configs.gemma2_27b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
 }
 # The reference's architectures whose layers the port cannot run yet.
-_NOT_PORTED = (
-    "xlstm-350m", "deepseek-v2-lite-16b", "deepseek-v2-236b", "qwen2-vl-7b",
-    "jamba-1.5-large-398b", "musicgen-large",
-)
+_NOT_PORTED = ("xlstm-350m", "qwen2-vl-7b", "jamba-1.5-large-398b", "musicgen-large")
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 

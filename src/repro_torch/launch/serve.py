@@ -4,6 +4,7 @@ service (counterpart of ``repro/launch/serve.py``):
   PYTHONPATH=src python -m repro_torch.launch.serve lm --arch yi-9b --reduced \\
       --requests 4 --prompt-len 16 --max-new 24 [--device cuda]
   PYTHONPATH=src python -m repro_torch.launch.serve lm --arch gemma2-27b [--device cuda]
+  PYTHONPATH=src python -m repro_torch.launch.serve lm --arch deepseek-v2-lite-16b [--device cuda]
   PYTHONPATH=src python -m repro_torch.launch.serve stereo --frames 8 --batch 4 \\
       --height 120 --width 160 [--device cuda]
 

@@ -1,10 +1,12 @@
-"""LMModel: the dense GQA decoders (counterpart of ``repro/models/model.py``
-for architectures made of ``LayerKind.ATTN`` and ``LayerKind.ATTN_LOCAL``
-layers with a dense MLP: yi, qwen2.5, mistral-large, gemma2).
+"""LMModel: the decoders made of attention layers (counterpart of
+``repro/models/model.py`` for architectures made of ``LayerKind.ATTN``,
+``ATTN_LOCAL`` and ``MLA`` layers, each with a dense MLP or a MoE: yi,
+qwen2.5, mistral-large, gemma2, deepseek-v2).
 
-Each layer is RMSNorm -> GQA attention (global, or a sliding window on
-``ATTN_LOCAL``) -> residual; RMSNorm -> MLP -> residual, with gemma2's
-post-block RMSNorms on the attention and MLP outputs when
+Each layer is RMSNorm -> attention (GQA, global or a sliding window on
+``ATTN_LOCAL``; multi-head latent attention on ``MLA``) -> residual;
+RMSNorm -> MLP, or static-capacity MoE where ``_layer_is_moe`` -> residual,
+with gemma2's post-block RMSNorms on the attention and MLP outputs when
 ``cfg.post_block_norm``.  The layers are a ``ModuleList``, run one after
 another in ``cfg.layer_kinds``'s order (the reference scans over stacked
 units).  gemma2's other options: the embedding scaled by sqrt(d_model) (cast
@@ -12,7 +14,7 @@ to the model's dtype first, as the reference), tied embeddings (logits
 against ``embed``, no ``lm_head``), and the attention and logit softcaps.
 The weights are held in ``cfg.dtype``, cast once (the reference keeps
 float32 and casts at every use, which gives the same values); the RMSNorm
-scales stay float32.  ``MLA``, ``MAMBA``, ``MLSTM``, ``SLSTM``, MoE layers,
+scales and the MoE router stay float32.  ``MAMBA``, ``MLSTM``, ``SLSTM``,
 M-RoPE and the stub frontends raise ``NotImplementedError`` (ROADMAP.md,
 queue 1); ``loss`` waits for the training slice.
 """
@@ -25,24 +27,42 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, common
+from repro_torch.models import attention, common, mla, moe as moe_mod
 from repro_torch.models.config import LayerKind, ModelConfig
 from repro_torch.models.mlp import init_mlp_params, mlp_block, mlp_shapes
 
-Caches = list  # one attention.KVCache per layer
+Caches = list  # one attention.KVCache or mla.MLACache per layer
+
+# The layer kinds the port runs: GQA attention and multi-head latent attention.
+_ATTN_KINDS = (*attention.ATTN_KINDS, LayerKind.MLA)
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
 
 
+def _params(shapes: dict, dtype, device) -> nn.ParameterDict:
+    return nn.ParameterDict({name: _param(shape, dtype, device) for name, shape in shapes.items()})
+
+
+def _layer_is_moe(cfg: ModelConfig, layer_idx: int) -> bool:
+    """Whether layer ``layer_idx`` (its index in the whole stack) is MoE: the
+    first ``first_dense`` layers are dense (``ModelConfig.layer_is_moe``
+    ignores them)."""
+    if cfg.moe is None:
+        return False
+    if layer_idx < cfg.moe.first_dense:
+        return False
+    return ((layer_idx - cfg.moe.first_dense) % cfg.moe.every) == cfg.moe.offset
+
+
 def _check_ported(cfg: ModelConfig) -> None:
     for i, kind in enumerate(cfg.layer_kinds):
-        if kind not in attention.ATTN_KINDS:
+        if kind not in _ATTN_KINDS:
             raise NotImplementedError(f"{cfg.name}: layer {i} is {kind.value}; the port runs "
-                                      f"attn and attn_local layers only (ROADMAP.md, queue 1)")
-    for what, unported in (("MoE layers", cfg.moe is not None),
-                           (f"the {cfg.frontend} frontend", cfg.frontend != "none"),
+                                      f"attn, attn_local and mla layers only (ROADMAP.md, "
+                                      f"queue 1)")
+    for what, unported in ((f"the {cfg.frontend} frontend", cfg.frontend != "none"),
                            (f"{cfg.pos_embedding} positions",
                             cfg.pos_embedding not in ("rope", "none"))):
         if unported:
@@ -50,38 +70,77 @@ def _check_ported(cfg: ModelConfig) -> None:
                                       f"(ROADMAP.md, queue 1)")
 
 
-class AttnLayer(nn.Module):
-    """One ``LayerKind.ATTN`` or ``ATTN_LOCAL`` layer's weights (``kind``)."""
+class MoeWeights(nn.Module):
+    """One MoE layer's weights: the float32 router, the routed experts (E, ., .)
+    in the model's dtype and the ``shared`` experts' MLP; read as a mapping
+    by ``moe.moe_block``."""
 
-    def __init__(self, cfg: ModelConfig, kind: LayerKind, dtype: torch.dtype, device):
+    def __init__(self, d_model: int, moe, dtype: torch.dtype, device):
+        super().__init__()
+        for name, shape in moe_mod.moe_shapes(d_model, moe).items():
+            setattr(self, name, _param(shape, torch.float32 if name == "router" else dtype,
+                                       device))
+        if moe.num_shared > 0:
+            self.shared = _params(mlp_shapes(d_model, moe.num_shared * moe.d_expert, "silu"),
+                                  dtype, device)
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+
+class AttnLayer(nn.Module):
+    """One ``LayerKind.ATTN``, ``ATTN_LOCAL`` or ``MLA`` layer's weights
+    (``kind``), with a dense MLP or, where ``_layer_is_moe`` (``is_moe``), a
+    MoE."""
+
+    def __init__(self, cfg: ModelConfig, kind: LayerKind, index: int, dtype: torch.dtype,
+                 device):
         super().__init__()
         d = cfg.d_model
         self.kind = kind
+        self.is_moe = _layer_is_moe(cfg, index)
         self.norm_attn = _param((d,), torch.float32, device)
-        self.attn = nn.ParameterDict({name: _param(shape, dtype, device)
-                                      for name, shape in attention.attn_shapes(cfg).items()})
+        self.attn = _params(mla.mla_shapes(cfg) if kind == LayerKind.MLA
+                            else attention.attn_shapes(cfg), dtype, device)
         self.norm_mlp = _param((d,), torch.float32, device)
-        self.mlp = nn.ParameterDict({name: _param(shape, dtype, device)
-                                     for name, shape in mlp_shapes(d, cfg.d_ff,
-                                                                   cfg.mlp_act).items()})
+        self.mlp = (MoeWeights(d, cfg.moe, dtype, device) if self.is_moe
+                    else _params(mlp_shapes(d, cfg.d_ff, cfg.mlp_act), dtype, device))
         if cfg.post_block_norm:
             self.post_norm_attn = _param((d,), torch.float32, device)
             self.post_norm_mlp = _param((d,), torch.float32, device)
 
 
 def _apply_layer(layer: AttnLayer, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ModelConfig, cache: Optional[attention.KVCache]):
-    """Returns (x, new_cache)."""
+                 cfg: ModelConfig, cache):
+    """Returns (x, new_cache, the MoE's aux terms or None)."""
     eps = cfg.norm_eps
     h = common.rms_norm(x, layer.norm_attn, eps)
-    h, new_cache = attention.attention_block(layer.attn, h, positions, cfg, layer.kind, cache)
+    if layer.kind == LayerKind.MLA:
+        h, new_cache = mla.mla_block(layer.attn, h, positions, cfg, cache)
+    else:
+        h, new_cache = attention.attention_block(layer.attn, h, positions, cfg, layer.kind,
+                                                 cache)
     if cfg.post_block_norm:
         h = common.rms_norm(h, layer.post_norm_attn, eps)
     x = x + h
-    h = mlp_block(layer.mlp, common.rms_norm(x, layer.norm_mlp, eps), cfg.mlp_act)
+    h = common.rms_norm(x, layer.norm_mlp, eps)
+    aux = None
+    if layer.is_moe:
+        h, aux = moe_mod.moe_block(layer.mlp, h, cfg.moe)
+    else:
+        h = mlp_block(layer.mlp, h, cfg.mlp_act)
     if cfg.post_block_norm:
         h = common.rms_norm(h, layer.post_norm_mlp, eps)
-    return x + h, new_cache
+    return x + h, new_cache, aux
+
+
+@torch.no_grad()
+def _copy_into(target, weights: dict) -> None:
+    for name, w in weights.items():
+        if isinstance(w, dict):
+            _copy_into(target[name], w)
+        else:
+            target[name].copy_(w)
 
 
 class LMModel(nn.Module):
@@ -103,8 +162,8 @@ class LMModel(nn.Module):
         self.final_norm = _param((d,), torch.float32, self.device)
         if not cfg.tie_embeddings:
             self.lm_head = _param((d, vocab), self.dtype, self.device)
-        self.layers = nn.ModuleList(AttnLayer(cfg, kind, self.dtype, self.device)
-                                    for kind in cfg.layer_kinds)
+        self.layers = nn.ModuleList(AttnLayer(cfg, kind, i, self.dtype, self.device)
+                                    for i, kind in enumerate(cfg.layer_kinds))
 
     # ---------------- init ------------------------------------------------
     @torch.no_grad()
@@ -121,11 +180,12 @@ class LMModel(nn.Module):
             self.lm_head.copy_(common.dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                                  device=dev))
         for layer in self.layers:
-            for name, w in attention.init_attn_params(gen, cfg, dev).items():
-                layer.attn[name].copy_(w)
-            for name, w in init_mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act,
-                                           dev).items():
-                layer.mlp[name].copy_(w)
+            init_attn = (mla.init_mla_params if layer.kind == LayerKind.MLA
+                         else attention.init_attn_params)
+            _copy_into(layer.attn, init_attn(gen, cfg, dev))
+            _copy_into(layer.mlp, moe_mod.init_moe_params(gen, cfg.d_model, cfg.moe, dev)
+                       if layer.is_moe
+                       else init_mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act, dev))
             for name, p in layer.named_parameters(recurse=False):
                 p.zero_()                              # the RMSNorm scales
         return self
@@ -150,7 +210,9 @@ class LMModel(nn.Module):
         caches: Optional[Caches] = None,
     ) -> tuple[torch.Tensor, Optional[Caches], dict]:
         """Returns (logits (B, S, V) float32, new_caches, aux).  ``aux`` holds
-        the reference's MoE terms, all zero here."""
+        the reference's MoE terms (``aux_loss``, ``z_loss``,
+        ``fraction_dropped``), each summed over the MoE layers: float32
+        scalars, or 0.0 without a MoE layer."""
         cfg = self.cfg
         inputs = torch.as_tensor(inputs, device=self.device)
         b, s = inputs.shape[:2]
@@ -159,18 +221,21 @@ class LMModel(nn.Module):
             positions = (start + torch.arange(s, device=self.device)).expand(b, s)
         x = self._embed(inputs)
         new_caches = None if caches is None else []
+        aux = {"aux_loss": 0.0, "z_loss": 0.0, "fraction_dropped": 0.0}
         for i, layer in enumerate(self.layers):
-            x, cache = _apply_layer(layer, x, positions, cfg,
-                                    None if caches is None else caches[i])
+            x, cache, layer_aux = _apply_layer(layer, x, positions, cfg,
+                                               None if caches is None else caches[i])
             if caches is not None:
                 new_caches.append(cache)
-        aux = {"aux_loss": 0.0, "z_loss": 0.0, "fraction_dropped": 0.0}
+            if layer_aux is not None:
+                aux = {k: aux[k] + layer_aux[k] for k in aux}
         return self._logits(x), new_caches, aux
 
     # ---------------- caches -------------------------------------------------
     def init_caches(self, batch: int, max_len: int, dtype=torch.bfloat16) -> Caches:
-        return [attention.init_kv_cache(self.cfg, batch, max_len, dtype, self.device)
-                for _ in self.layers]
+        return [(mla.init_mla_cache if layer.kind == LayerKind.MLA else attention.init_kv_cache)(
+                    self.cfg, batch, max_len, dtype, self.device)
+                for layer in self.layers]
 
 
 # --------------------------------------------------------------------------
@@ -213,7 +278,15 @@ def params_from_reference(cfg: ModelConfig, tree: dict) -> dict[str, torch.Tenso
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     """Total parameters, as the reference counts them.  ``active_only``
-    differs from the total only for MoE configs, which the port does not
-    build yet (LMModel raises for them)."""
-    del active_only
-    return sum(p.numel() for p in LMModel(cfg, device="meta").parameters())
+    counts each routed expert tensor of an MoE layer past ``cfg.prefix`` at
+    ``top_k / num_experts`` of its size: the reference's rule, which scales
+    the leaves of its stacked ``units`` whose second axis is the expert
+    count (the prefix's layers are not stacked)."""
+    model = LMModel(cfg, device="meta")
+    total = sum(p.numel() for p in model.parameters())
+    if not active_only or cfg.moe is None:
+        return total
+    routed = sum(layer.mlp[name].numel()
+                 for i, layer in enumerate(model.layers)
+                 if layer.is_moe and i >= len(cfg.prefix) for name in moe_mod.ROUTED)
+    return total - routed + routed * cfg.moe.top_k // cfg.moe.num_experts

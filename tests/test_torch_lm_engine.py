@@ -190,7 +190,7 @@ def test_serve_lm_launcher_on_cpu():
 
 def test_serve_lm_launcher_refuses_an_unported_arch():
     with pytest.raises(SystemExit), contextlib.redirect_stderr(io.StringIO()):
-        serve.main(["lm", "--device", "cpu", "--arch", "deepseek-v2-lite-16b"])
+        serve.main(["lm", "--device", "cpu", "--arch", "xlstm-350m"])
 
 
 def test_float32_variant_runs_the_engine_on_the_float32_path():

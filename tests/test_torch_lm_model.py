@@ -30,7 +30,7 @@ from repro.models.config import LayerKind as RefLayerKind
 from repro.models.model import count_params as ref_count_params
 from repro_torch import configs as port_configs
 from repro_torch.models import attention, common, mlp
-from repro_torch.models.config import LayerKind, MambaConfig, MoeConfig
+from repro_torch.models.config import LayerKind, MambaConfig
 from repro_torch.models.model import LMModel, count_params, params_from_reference
 
 MODELS = (*cases.ARCHS, "tiny")
@@ -315,11 +315,11 @@ def test_yi_9b_full_width_count():
 
 
 def test_registry_covers_the_ported_archs_only():
-    ported = (*cases.ARCHS, "gemma2-27b")       # gemma2: tests/test_torch_gemma2.py
+    # gemma2: tests/test_torch_gemma2.py; deepseek-v2: tests/test_torch_deepseek.py
+    ported = (*cases.ARCHS, "gemma2-27b", *cases.DEEPSEEK)
     assert port_configs.ARCH_IDS == ported
     assert set(port_configs.all_configs(reduced=True)) == set(ported)
-    for arch in ("xlstm-350m", "deepseek-v2-lite-16b", "deepseek-v2-236b", "qwen2-vl-7b",
-                 "jamba-1.5-large-398b", "musicgen-large"):
+    for arch in ("xlstm-350m", "qwen2-vl-7b", "jamba-1.5-large-398b", "musicgen-large"):
         with pytest.raises(KeyError, match="not ported yet"):
             port_configs.get_config(arch)
     with pytest.raises(KeyError, match="unknown arch"):
@@ -369,13 +369,11 @@ def test_gemma2_option_alone_matches_reference(change):
 
 
 @pytest.mark.parametrize("change", [
-    dict(pattern_unit=(LayerKind.MLA,)),
     dict(pattern_unit=(LayerKind.MAMBA,), mamba=MambaConfig()),
     dict(pattern_unit=(LayerKind.MLSTM, LayerKind.SLSTM)),
-    dict(moe=MoeConfig(num_experts=4, top_k=2, d_expert=32)),
     dict(pos_embedding="mrope"),
     dict(frontend="audio_stub"),
-], ids=["mla", "mamba", "xlstm", "moe", "mrope", "frontend"])
+], ids=["mamba", "xlstm", "mrope", "frontend"])
 def test_unported_layers_raise(change):
     cfg = dataclasses.replace(cases.TINY, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):

@@ -31,6 +31,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import LMModel, params_from_reference
 
 ARCHS = ("yi-9b", "qwen2.5-32b", "mistral-large-123b")
+DEEPSEEK = ("deepseek-v2-lite-16b", "deepseek-v2-236b")
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_ATOL = 0.0625
 
@@ -39,6 +40,16 @@ _TINY = dict(name="tiny", family="dense", num_layers=2, d_model=64, num_heads=4,
              num_kv_heads=2, d_ff=128, vocab_size=256, q_chunk=32, kv_chunk=32)
 TINY = ModelConfig(**_TINY)
 REF_TINY = RefModelConfig(**_TINY)
+
+
+def bf16_steps(want: np.ndarray, steps: int = 4) -> dict:
+    """A block's bfloat16 tolerance: ``steps`` bfloat16 steps (2**-7 of the
+    binade) of the largest reference output, as chip_smoke.py's
+    ``LM_LOGIT_ULPS`` rule: the outputs are sums whose terms each round to
+    bfloat16, so a last-bit difference is one step of the terms' scale, not
+    of the (possibly small) output's own."""
+    top = float(np.abs(want).max())
+    return dict(atol=steps * 2.0 ** (np.floor(np.log2(top)) - 7), rtol=0)
 
 
 def configs(name: str, dtype: str | None = None):
