@@ -39,9 +39,10 @@ Phases (any failure exits nonzero):
     ``F.scaled_dot_product_attention``'s time, and how many of its outputs
     lie outside FLASH_TOL of the plain version, beside it as a yardstick;
     flash in bfloat16 at yi-9b's serving shapes (decode: B=4, H=32, one query
-    against 1, 17, 31 and 4096 keys, full; prefill-shaped 16 x 16, causal),
-    the decode shapes of 31 and 4096 keys timed with the kernel's byte bound,
-    the path's (yi-9b's 4 KV heads read once) and SDPA's time; flash in
+    against 1, 17, 31 and 4096 keys, full; prefill-shaped 16 x 16, causal)
+    and at jamba-1.5-large-398b's decode (B=4, H=64, 31 keys), the decode
+    shapes of 31 and 4096 keys timed with the kernel's byte bound, the path's
+    (yi-9b's 4, jamba's 8 KV heads read once) and SDPA's time; flash in
     bfloat16 at gemma2-27b's shapes with its softcap of 50 (q scaled so that
     scores span about +-150): decode (4, 32, 1, 31, 128), full; prefill-shaped
     (1, 32, 8192, 8192, 128), causal, with the local layers' window of 4096
@@ -130,8 +131,20 @@ Phases (any failure exits nonzero):
 14. deepseek-v2-236b cut to its first LM_CUT_LAYERS = 4 layers at full
     widths (q-LoRA queries, 160 experts; 13,302,903,808 parameters, 24.78
     GiB): one wave of 4 requests, no flash launch, no token dropped, a
-    profiled step, and the reduced float32 model against the CPU;
-15. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
+    profiled step, the reduced float32 model against the CPU, and ``serve lm
+    --arch deepseek-v2-236b`` (its reduced model);
+15. jamba-1.5-large-398b cut to its first LM_CUT_LAYERS = 4 layers at full
+    widths, its 8-layer unit cut with them (``pattern_unit[:4]``: Mamba + MLP,
+    Mamba + MoE, Mamba + MLP, attention + MoE of 16 experts, top-2;
+    23,021,379,584 parameters, 42.88 GiB; memory after ``init`` and its
+    peak): one wave of 4 requests, flash launched once a decode step (the
+    attention layer), no token dropped, a profiled step (flash's, the
+    matmuls' and the Mamba mixers' shares, one mixer traced alone), the
+    kernel path against the plain-attention path as in phase 11 up to each
+    request's first step whose experts differ (that flip must be a near tie,
+    FLIP_MARGIN, on the plain path's router), the reduced float32 model
+    against the CPU and ``serve lm --arch jamba-1.5-large-398b``;
+16. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
 
 Every time is printed with the card's name and power limit.  Each profiled
 frame or wave also leaves its device-side rows, by time, in
@@ -228,8 +241,13 @@ FLASH_PREFILL = (4, 32, 16, 16, 128)
 # and v, out) and the path's (q, yi-9b's 4 KV heads' prefix unexpanded, out),
 # which a kernel reading each KV head once for its query heads could reach.
 FLASH_DECODE_LONG = (4, 32, 1, 4096, 128)
-FLASH_DECODE_TIMED = (FLASH_DECODE[-1], FLASH_DECODE_LONG)
 LM_KV_HEADS = 4           # yi-9b's KV heads: each serves 8 of the 32 query heads
+# Flash at jamba-1.5-large-398b's decode on phase 15's path (src/repro/configs/
+# jamba_1_5_large_398b.py: 64 query heads of 128 after the GQA expansion of
+# its 8 KV heads), one query against the smoke's longest cache prefix, full.
+FLASH_JAMBA_DECODE = (4, 64, 1, 31, 128)
+JAMBA_KV_HEADS = 8
+FLASH_DECODE_TIMED = (FLASH_DECODE[-1], FLASH_DECODE_LONG, FLASH_JAMBA_DECODE)
 # Flash at gemma2-27b's shapes (src/repro/configs/gemma2_27b.py: 32 query
 # heads of 128 after the GQA expansion of its 16 KV heads, a score softcap of
 # 50 on every layer, a sliding window of 4096 on every other).  Decode is
@@ -258,16 +276,19 @@ WARM_BAND = 8             # the service's default warm band
 VIDEO_FRAMES = 5          # frames of the warm video phase
 VIDEO_CUT = 3             # its scene cut
 BASELINE_FRAMES = 4       # the hybrid baseline: one warm-up frame and three timed
-# LM serving (phases 11-14): yi-9b, gemma2-27b and deepseek-v2-lite-16b, each
+# LM serving (phases 11-15): yi-9b, gemma2-27b and deepseek-v2-lite-16b, each
 # at full width, all layers, bfloat16, seeded weights; ServeEngine(batch=4,
 # max_len=33) on 8 requests of 4-16 prompt tokens (np.random.default_rng(0),
-# drawn as the launcher's serve_lm draws them) and 16 new tokens each; then
-# deepseek-v2-236b (439 GiB in bfloat16, more than the card) cut to its
-# first LM_CUT_LAYERS layers at full widths (one dense, three MoE of 160
-# experts; 13,302,903,808 parameters, 24.78 GiB), on the first 4 requests.
+# drawn as the launcher's serve_lm draws them) and 16 new tokens each; then,
+# each cut to its first LM_CUT_LAYERS layers at full widths and run on the
+# first 4 requests, deepseek-v2-236b (439 GiB in bfloat16, more than the
+# card: one dense layer, three MoE of 160 experts; 13,302,903,808
+# parameters, 24.78 GiB) and jamba-1.5-large-398b (742 GiB: Mamba + MLP,
+# Mamba + MoE, Mamba + MLP, attention + MoE of 16 experts; its 8-layer unit
+# cut to 4; 23,021,379,584 parameters, 42.88 GiB).
 LM_CUT_LAYERS = 4
 LM_ARCHS = (("yi-9b", 0), ("gemma2-27b", 0), ("deepseek-v2-lite-16b", 0),
-            ("deepseek-v2-236b", LM_CUT_LAYERS))
+            ("deepseek-v2-236b", LM_CUT_LAYERS), ("jamba-1.5-large-398b", LM_CUT_LAYERS))
 LM_BATCH = 4
 LM_REQUESTS = 8
 LM_PROMPT_LEN = 16
@@ -304,6 +325,14 @@ LM_F32_STEPS = 24
 # The reduced model in float32 on the card against the port's CPU run: the
 # CPU tests' tolerance for the float32 variants (tests/torch_lm_cases.py).
 LM_F32_TOL = (1e-5, 1e-5)
+# A MoE's choice of experts is a step function of its input: a one-ulp
+# difference in the attention's output can flip a near-tied top-k choice,
+# after which that request's logits move by far more than delta.  The kernel
+# path is held to the plain path up to each request's first step whose
+# experts differ, and that first flip must be a near tie on the plain path:
+# its k-th and (k+1)-th router probabilities within this (the CPU tests'
+# FLIP_MARGIN, tests/torch_lm_cases.py).
+FLIP_MARGIN = 0.01
 
 
 def main() -> int:
@@ -1116,16 +1145,16 @@ def main() -> int:
     flash_out = {(dtype, causal): check_flash(dtype, causal)
                  for dtype in (torch.float32, torch.bfloat16) for causal in (True, False)}
 
-    def check_flash_lm(shape, causal):
-        """The kernel against its plain version at an LM serving shape, in
-        bfloat16; at the decode shapes of FLASH_DECODE_TIMED also timed, with
-        the kernel's and the path's byte bounds and scaled_dot_product_attention's
-        device time."""
+    def check_flash_lm(shape, causal, arch="yi-9b", kv_heads=LM_KV_HEADS):
+        """The kernel against its plain version at an LM serving shape of
+        ``arch``, in bfloat16; at the decode shapes of FLASH_DECODE_TIMED also
+        timed, with the kernel's and the path's byte bounds (``kv_heads``
+        read once) and scaled_dot_product_attention's device time."""
         b, h, sq, skv, d = shape
         gen = torch.Generator().manual_seed(1)
         q, k, v = (torch.randn((b, h, n, d), generator=gen).to(dev, torch.bfloat16)
                    for n in (sq, skv, skv))
-        label = f"yi-9b {'prefill' if causal else 'decode'} bfloat16 Skv={skv}"
+        label = f"{arch} {'prefill' if causal else 'decode'} bfloat16 Skv={skv}"
         got = flash_kernel.flash_attention(q, k, v, causal=causal)
         want = ref.flash_attention_ref(q, k, v, causal=causal).float()
         torch.cuda.synchronize()
@@ -1137,8 +1166,8 @@ def main() -> int:
                 f"{atol} + rtol {rtol} x |plain|, max_abs_err {err}")
         if shape in FLASH_DECODE_TIMED:
             nbytes = nbytes_of(q, k, v, got)
-            # the path's attention: q, out, and the prefix of LM_KV_HEADS heads
-            gqa_bytes = nbytes_of(q, got) + 2 * b * LM_KV_HEADS * skv * d * k.element_size()
+            # the path's attention: q, out, and the prefix of kv_heads heads
+            gqa_bytes = nbytes_of(q, got) + 2 * b * kv_heads * skv * d * k.element_size()
             ops = 4 * b * h * sq * skv * d
             t_ops = ops / FLASH_PEAK_FLOPS["bfloat16"] * 1e3
             t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -1156,7 +1185,7 @@ def main() -> int:
                      f"device ({plain_call:.4f} ms a call), scaled_dot_product_attention "
                      f"{library:.4f} ms device ({library_call:.4f} ms a call; kernels "
                      f"{sorted({r[2][:60] for r in sdpa_rows})}), bound {b_ms:.6f} ms ({b_by}; "
-                     f"{nbytes} B, {ops} flops); the path's bound with {LM_KV_HEADS} KV heads "
+                     f"{nbytes} B, {ops} flops); the path's bound with {kv_heads} KV heads "
                      f"read once {gqa_ms:.6f} ms ({gqa_bytes} B), the kernel at "
                      f"{ms / gqa_ms:.1f}x it")
             record("flash_attention", label, err, ms, plain, b_ms, b_by, library)
@@ -1168,6 +1197,8 @@ def main() -> int:
     for shape in (*FLASH_DECODE, FLASH_DECODE_LONG):
         check_flash_lm(shape, causal=False)
     check_flash_lm(FLASH_PREFILL, causal=True)
+    check_flash_lm(FLASH_JAMBA_DECODE, causal=False, arch="jamba-1.5-large-398b",
+                   kv_heads=JAMBA_KV_HEADS)
 
     def visible_pairs(sq, skv, causal, window) -> int:
         """(query, key) pairs a head computes: row i sees min(i + 1, window)
@@ -1746,7 +1777,7 @@ def main() -> int:
         if cpu_mism:
             raise AssertionError(f"baseline {cfg.name}: card vs CPU differ in {cpu_mism} pixels")
 
-    # ---- 11-14. LM serving ------------------------------------------------
+    # ---- 11-15. LM serving ------------------------------------------------
     # The decoders through ServeEngine.  On a GQA layer every attention is a
     # flash kernel launch (decode: one query against the cache's valid
     # prefix, or on gemma2's local layers its last 4096 positions); an MLA
@@ -1755,27 +1786,51 @@ def main() -> int:
     # yi-9b (phase 11), gemma2-27b (phase 12: sliding window and softcap in
     # the kernel), deepseek-v2-lite-16b (phase 13: MLA and static-capacity
     # MoE), each at full width, then deepseek-v2-236b cut to LM_CUT_LAYERS
-    # layers (phase 14: q-LoRA, 160 experts); each model is freed before the
-    # next is made.
+    # layers (phase 14: q-LoRA, 160 experts), then jamba-1.5-large-398b's
+    # first LM_CUT_LAYERS layers (phase 15: three Mamba layers, plain
+    # PyTorch as the reference's are plain JAX, and one GQA layer on the
+    # flash kernel; MoE of 16 experts on layers 1 and 3); each model is freed
+    # before the next is made.
     from repro_torch.configs import get_config
     from repro_torch.models import attention as attention_mod
     from repro_torch.models import common as common_mod
+    from repro_torch.models import mamba as mamba_mod
     from repro_torch.models import moe as moe_mod
+    from repro_torch.models.config import LayerKind
     from repro_torch.models.model import LMModel, count_params
     from repro_torch.serving import ServeEngine, decode_step
     from repro_torch.serving import engine as engine_mod
 
     def serve_lm_phase(phase: int, arch: str, cut: int = 0):
         cfg = get_config(arch)
+        how = "no cut"
         if cut:
-            cfg = dataclasses.replace(cfg, num_layers=cut)
+            # the first `cut` layers; where they end inside the repeated unit
+            # (jamba's 8-layer unit), the unit is cut with them
+            rem = cut - len(cfg.prefix)
+            change = (dict(num_layers=cut) if rem % len(cfg.pattern_unit) == 0
+                      else dict(num_layers=cut, pattern_unit=cfg.pattern_unit[:rem]))
+            how = (f"cut from {cfg.num_layers}: dataclasses.replace(cfg, num_layers={cut}"
+                   + (f", pattern_unit=cfg.pattern_unit[:{rem}]" if len(change) > 1 else "")
+                   + "), full widths")
+            cfg = dataclasses.replace(cfg, **change)
         capped = cfg.logit_softcap > 0.0
         n_attn = sum(k in attention_mod.ATTN_KINDS for k in cfg.layer_kinds)
+        n_mamba = sum(k == LayerKind.MAMBA for k in cfg.layer_kinds)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         model = LMModel(cfg).init(0)                    # on cuda:0
         torch.cuda.synchronize()
-        if cfg.mla is not None:
+        init_peak = torch.cuda.max_memory_allocated() / 2**30
+        if cfg.mamba is not None:
+            m, e = cfg.mamba, cfg.moe
+            shape = (f"Mamba d_inner {m.expand * cfg.d_model}, d_state {m.d_state}, d_conv "
+                     f"{m.d_conv}, dt_rank {mamba_mod.dt_rank(cfg)}; {cfg.num_heads} heads "
+                     f"({cfg.num_kv_heads} KV) of {cfg.head_dim} on the attention layers; "
+                     f"dense MLP d_ff {cfg.d_ff} or MoE of {e.num_experts} experts of "
+                     f"{e.d_expert}, top-{e.top_k}, on every other layer; "
+                     f"{count_params(cfg, active_only=True)} active")
+        elif cfg.mla is not None:
             m, e = cfg.mla, cfg.moe
             shape = (f"{cfg.num_heads} heads, MLA latent {m.kv_lora_rank} + rope "
                      f"{m.rope_head_dim}, nope {m.nope_head_dim}, v {m.v_head_dim}, q_lora "
@@ -1788,11 +1843,11 @@ def main() -> int:
                      f"{cfg.sliding_window if len(set(cfg.layer_kinds)) > 1 else 'none'}, "
                      f"softcaps {cfg.attn_softcap} / {cfg.logit_softcap}")
         print(f"lm {cfg.name} (phase {phase}): {count_params(cfg)} parameters, "
-              f"{cfg.num_layers} layers {'/'.join(k.value for k in cfg.pattern_unit)} "
-              f"({f'cut from {get_config(arch).num_layers}: dataclasses.replace(cfg, num_layers={cut}), full widths' if cut else 'no cut'}), "
+              f"{cfg.num_layers} layers {'/'.join(k.value for k in cfg.pattern_unit)} ({how}), "
               f"d_model {cfg.d_model}, {shape}, vocab {cfg.vocab_size}, {cfg.dtype}, seeded "
               f"weights made on the card in {time.perf_counter() - t0:.2f} s; "
-              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated {card}")
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, peak "
+              f"{init_peak:.2f} GiB during init {card}")
         rng = np.random.default_rng(0)
         prompts = [rng.integers(0, cfg.vocab_size, size=rng.integers(4, LM_PROMPT_LEN + 1))
                    for _ in range(LM_REQUESTS)]
@@ -1895,7 +1950,7 @@ def main() -> int:
         # cuBLAS's kernels: nvjet_* on this toolkit, *gemm* / *gemv* on others
         gemm_us = sum(r[0] for r in rows if any(w in r[2].lower() for w in
                                                 ("nvjet", "gemm", "gemv", "xmma", "cutlass")))
-        expansion = ""
+        extra = ""
         if n_attn:
             # The GQA expansion of k and v for the kernel (attention._expand_kv),
             # one layer's traced alone at the step's shapes (the cache's valid
@@ -1913,35 +1968,68 @@ def main() -> int:
                            key=lambda t: sum(r[1] for r in t))
             exp_ops = sum(r[1] for r in exp_rows) // 10 * n_attn
             del kv
-            expansion = (f", the KV expansion for the kernel {exp_us:.1f} us "
+            extra = (f", the KV expansion for the kernel {exp_us:.1f} us "
                          f"({100 * exp_us / max(busy, 1e-9):.1f}%; {exp_ops} device operations, "
                          f"{n_attn} layers x one timed alone: "
                          f"{sorted({r[2][:40] for r in exp_rows})})")
+        if n_mamba:
+            # The Mamba mixers: one layer's decode step (its w_in and w_out
+            # products included) traced alone at the step's shapes, on a
+            # state as fresh as any (the step's work does not depend on it),
+            # times the Mamba layers.
+            layer = next(lay for lay in model.layers if lay.kind == LayerKind.MAMBA)
+            h = torch.zeros((LM_BATCH, 1, cfg.d_model), dtype=model.dtype, device=dev)
+            state = mamba_mod.init_mamba_state(cfg, LM_BATCH, dev)
+
+            def mixer():
+                return mamba_mod.mamba_block(layer.mixer, h, cfg, state)
+
+            # 10 calls of ~50 launches: the queue behind the spin holds ~1,000
+            with torch.inference_mode():
+                mix_us = queued_ms(mixer, 10, "a Mamba mixer")[0] * 1e3 * n_mamba
+                mix_rows = max((traced_rows(mixer, 10, "a Mamba mixer") for _ in range(3)),
+                               key=lambda t: sum(r[1] for r in t))
+            mix_ops = sum(r[1] for r in mix_rows) // 10 * n_mamba
+            extra += (f", the Mamba mixers {mix_us:.1f} us "
+                          f"({100 * mix_us / max(busy, 1e-9):.1f}%; {mix_ops} device "
+                          f"operations, {n_mamba} layers x one timed alone, its w_in and w_out "
+                          f"products included)")
+            del h, state
         print(f"lm profile {cfg.name} decode step (batch {LM_BATCH}, cache index "
               f"{LM_PROMPT_LEN}): device busy {busy:.1f} us of {wall_us:.1f} us wall under the "
               f"profiler ({100 * busy / wall_us:.1f}%; "
               f"{100 * busy / 1e3 / median_of(step_ms):.1f}% of the median unprofiled step), "
               f"flash {flash_us:.1f} us "
               f"({100 * flash_us / max(busy, 1e-9):.1f}% of busy), matmuls {gemm_us:.1f} us "
-              f"({100 * gemm_us / max(busy, 1e-9):.1f}%){expansion}, "
+              f"({100 * gemm_us / max(busy, 1e-9):.1f}%){extra}, "
               f"{sum(r[1] for r in rows)} device operations "
               f"({sum(r[1] for r in rows) / cfg.num_layers:.0f} a layer) {card}")
 
         if n_attn:
             # The kernel against its plain version on this path: wave 0 again,
             # every step's logits kept (and, with a logit softcap, the logits
-            # before it), once through the kernel and once with the attention's
-            # kernel call swapped for the plain version (here only, not in the
+            # before it; with a MoE, every layer's expert choices and the
+            # margin between the k-th and (k+1)-th router probabilities),
+            # once through the kernel and once with the attention's kernel
+            # call swapped for the plain version (here only, not in the
             # package).
             def logged_wave():
-                log, pre = [], []
-                logits_of = model._logits
+                log, pre, routes = [], [], []
+                logits_of, moe_block = model._logits, moe_mod.moe_block
 
-                def logits_and_pre(x):
+                def logits_and_pre(x32):
                     if capped:
-                        h = common_mod.rms_norm(x[:, -1], model.final_norm, cfg.norm_eps)
+                        h = common_mod.rms_norm(x32[:, -1], model.final_norm, cfg.norm_eps,
+                                                model.dtype)
                         pre.append((h @ model.embed.T).float())
-                    return logits_of(x)
+                    return logits_of(x32)
+
+                def routed(params, x, moe_cfg):
+                    logits = x.reshape(-1, x.shape[-1]).float() @ params["router"]
+                    p, e = torch.sort(torch.softmax(logits, -1), dim=-1, descending=True, stable=True)
+                    k = moe_cfg.top_k
+                    routes.append((e[:, :k].sort(-1).values, p[:, k - 1] - p[:, k]))
+                    return moe_block(params, x, moe_cfg)
 
                 @torch.inference_mode()
                 def step(model, caches, tokens):
@@ -1951,17 +2039,23 @@ def main() -> int:
 
                 engine_mod.decode_step = step
                 model._logits = logits_and_pre
+                moe_mod.moe_block = routed
                 try:
                     toks = ServeEngine(model, LM_BATCH, LM_MAX_LEN).generate(waves[0], LM_NEW)
                 finally:
                     engine_mod.decode_step = decode_step
+                    moe_mod.moe_block = moe_block
                     del model._logits
-                return toks, torch.stack(log), torch.stack(pre if capped else log)
+                if routes:                  # (steps, MoE layers, batch, k), (steps, layers, batch)
+                    shape = (len(log), len(routes) // len(log), LM_BATCH)
+                    routes = (torch.stack([e for e, _ in routes]).view(*shape, -1).cpu(),
+                              torch.stack([m for _, m in routes]).view(shape).cpu())
+                return toks, torch.stack(log), torch.stack(pre if capped else log), routes
 
-            k_toks, k_logits, k_pre = logged_wave()
+            k_toks, k_logits, k_pre, k_routes = logged_wave()
             attention_mod.flash_attention = ref.flash_attention_ref
             try:
-                p_toks, p_logits, p_pre = logged_wave()
+                p_toks, p_logits, p_pre, p_routes = logged_wave()
             finally:
                 attention_mod.flash_attention = flash_kernel.flash_attention
             if k_toks != outs[:LM_BATCH]:
@@ -1974,10 +2068,22 @@ def main() -> int:
             max_delta = 0.0
             top2 = p_logits.topk(2, dim=-1).values
             margins = (top2[..., 0] - top2[..., 1]).cpu()
+            # each request's first step whose experts differ on the two paths,
+            # with the plain path's router margin at its first such layer
+            first_flip = [(math.inf, 0.0)] * LM_BATCH
+            if k_routes:
+                differ = (k_routes[0] != p_routes[0]).any(-1)          # (steps, layers, batch)
+                for i in range(LM_BATCH):
+                    hits = differ[:, :, i].nonzero()
+                    if len(hits):
+                        t, layer_at = (int(v) for v in hits[0])
+                        first_flip[i] = (t, float(p_routes[1][t, layer_at, i]))
+            flips = []
             for i, prompt in enumerate(waves[0]):
                 start = len(prompt) - 1                 # the step of the first new token
-                j = 0
-                while j < LM_NEW:                       # inputs equal on both paths so far
+                flip_step, flip_margin = first_flip[i]
+                j, diverged = 0, False
+                while j < LM_NEW and start + j < flip_step:     # inputs and experts equal
                     margin = float(margins[start + j, i])
                     max_delta = max(max_delta, float((k_pre[start + j, i]
                                                       - p_pre[start + j, i]).abs().max()))
@@ -1987,10 +2093,19 @@ def main() -> int:
                                 f"lm {cfg.name}: request {i} token {j}: the kernel path gives "
                                 f"{k_toks[i][j]}, the plain path {p_toks[i][j]}, with plain "
                                 f"top-2 margin {margin} > {2 * delta}")
+                        diverged = True
                         break
                     held, low = held + (margin > 2 * delta), low + (margin <= 2 * delta)
                     j += 1
-                for t in range(start):                  # the prompt's steps
+                if not diverged and flip_step < start + LM_NEW:
+                    # the request's experts differ first while its inputs are equal
+                    flips.append((i, flip_step, flip_margin))
+                    if flip_margin >= FLIP_MARGIN:
+                        raise AssertionError(
+                            f"lm {cfg.name}: request {i} picks other experts at step "
+                            f"{flip_step} with equal inputs, where the plain path's router "
+                            f"margin is {flip_margin} >= {FLIP_MARGIN}")
+                for t in range(min(start, flip_step)):  # the prompt's steps
                     max_delta = max(max_delta, float((k_pre[t, i] - p_pre[t, i]).abs().max()))
                 after += LM_NEW - j
                 after_equal += sum(a == b for a, b in zip(k_toks[i][j:], p_toks[i][j:]))
@@ -2002,7 +2117,10 @@ def main() -> int:
                   f"{max_delta:.6f}; while the inputs are equal, {held} tokens with plain top-2 "
                   f"margin > {2 * delta:g} (gated) and {low} under it all equal; from each "
                   f"request's first differing token on, {after_equal} of {after} equal (not "
-                  f"gated) {card}")
+                  f"gated)"
+                  + (f"; routing flips with equal inputs (request, step, plain router margin "
+                     f"< {FLIP_MARGIN}): {flips}, each request held up to its flip"
+                     if cfg.moe is not None else "") + f" {card}")
             if max_delta > delta:
                 raise AssertionError(f"lm {cfg.name}: the kernel path's {what}s differ from the "
                                      f"plain path's by {max_delta} > {delta} with equal inputs")
@@ -2048,8 +2166,6 @@ def main() -> int:
         if toks_card != toks_cpu:
             raise AssertionError(f"lm float32 {cfg32.name}: card tokens differ from the CPU's")
 
-        if cut:
-            return
         reset_counts()
         rc = serve_launch.main(["lm", "--device", "cuda", "--arch", arch])
         counts = read_counts()
@@ -2067,7 +2183,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-    # ---- 15. summary -------------------------------------------------------
+    # ---- 16. summary -------------------------------------------------------
     shown = {"flash_attention": f"yi-9b decode bfloat16 Skv={FLASH_DECODE[-1][3]}"}
     entries = []
     for kname, _, _, source, replaces in kernels:

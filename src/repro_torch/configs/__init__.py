@@ -5,10 +5,12 @@ architecture registry (counterpart of ``repro.configs``): ``--arch <id>`` ->
 The port runs the decoders made of attention layers: the dense GQA decoders,
 every layer ``LayerKind.ATTN`` or ``ATTN_LOCAL`` with a dense MLP (yi,
 qwen2.5, mistral-large; gemma2 with its sliding window, softcaps, post-block
-norms, GeGLU and tied embeddings), and deepseek-v2 (``LayerKind.MLA`` layers,
+norms, GeGLU and tied embeddings), deepseek-v2 (``LayerKind.MLA`` layers,
 a dense first layer, then static-capacity MoE; the 236b with low-rank
-queries).  The reference's other architectures are not ported yet: asking
-for one raises ``KeyError`` that says so (ROADMAP.md, queue 1).
+queries), and the jamba hybrid (``LayerKind.MAMBA`` layers with one GQA
+layer in eight, MoE on every other layer).  The reference's other
+architectures are not ported yet: asking for one raises ``KeyError`` that
+says so (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -23,9 +25,10 @@ _ARCH_MODULES = {
     "gemma2-27b": "repro_torch.configs.gemma2_27b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
+    "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
 }
 # The reference's architectures whose layers the port cannot run yet.
-_NOT_PORTED = ("xlstm-350m", "qwen2-vl-7b", "jamba-1.5-large-398b", "musicgen-large")
+_NOT_PORTED = ("xlstm-350m", "qwen2-vl-7b", "musicgen-large")
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 

@@ -5,6 +5,7 @@ service (counterpart of ``repro/launch/serve.py``):
       --requests 4 --prompt-len 16 --max-new 24 [--device cuda]
   PYTHONPATH=src python -m repro_torch.launch.serve lm --arch gemma2-27b [--device cuda]
   PYTHONPATH=src python -m repro_torch.launch.serve lm --arch deepseek-v2-lite-16b [--device cuda]
+  PYTHONPATH=src python -m repro_torch.launch.serve lm --arch jamba-1.5-large-398b [--device cuda]
   PYTHONPATH=src python -m repro_torch.launch.serve stereo --frames 8 --batch 4 \\
       --height 120 --width 160 [--device cuda]
 

@@ -1,7 +1,7 @@
 """Model configuration covering every assigned architecture family (copy of
 ``repro/models/config.py``; the port runs the decoders of ``ATTN``,
-``ATTN_LOCAL`` and ``MLA`` layers with dense MLPs or MoE, and ``LMModel``
-raises ``NotImplementedError`` for the other layer kinds).
+``ATTN_LOCAL``, ``MLA`` and ``MAMBA`` layers with dense MLPs or MoE, and
+``LMModel`` raises ``NotImplementedError`` for the xLSTM layer kinds).
 
 One frozen dataclass describes dense GQA transformers (llama/yi/qwen/
 mistral), gemma2 variants (local/global alternation, softcaps), MLA + MoE

@@ -35,5 +35,5 @@ def mlp_block(params, x: torch.Tensor, act: str) -> torch.Tensor:
         return _gelu(x @ params["w_in"]) @ params["w_out"]
     gate = x @ params["w_gate"]
     up = x @ params["w_up"]
-    act_fn = F.silu if act == "silu" else _gelu
+    act_fn = common.silu if act == "silu" else _gelu
     return (act_fn(gate) * up) @ params["w_down"]

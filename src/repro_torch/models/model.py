@@ -1,22 +1,25 @@
-"""LMModel: the decoders made of attention layers (counterpart of
+"""LMModel: the decoders made of attention and Mamba layers (counterpart of
 ``repro/models/model.py`` for architectures made of ``LayerKind.ATTN``,
-``ATTN_LOCAL`` and ``MLA`` layers, each with a dense MLP or a MoE: yi,
-qwen2.5, mistral-large, gemma2, deepseek-v2).
+``ATTN_LOCAL``, ``MLA`` and ``MAMBA`` layers: yi, qwen2.5, mistral-large,
+gemma2, deepseek-v2, jamba).
 
-Each layer is RMSNorm -> attention (GQA, global or a sliding window on
-``ATTN_LOCAL``; multi-head latent attention on ``MLA``) -> residual;
+An attention layer is RMSNorm -> attention (GQA, global or a sliding window
+on ``ATTN_LOCAL``; multi-head latent attention on ``MLA``) -> residual;
 RMSNorm -> MLP, or static-capacity MoE where ``_layer_is_moe`` -> residual,
 with gemma2's post-block RMSNorms on the attention and MLP outputs when
-``cfg.post_block_norm``.  The layers are a ``ModuleList``, run one after
-another in ``cfg.layer_kinds``'s order (the reference scans over stacked
-units).  gemma2's other options: the embedding scaled by sqrt(d_model) (cast
-to the model's dtype first, as the reference), tied embeddings (logits
-against ``embed``, no ``lm_head``), and the attention and logit softcaps.
-The weights are held in ``cfg.dtype``, cast once (the reference keeps
-float32 and casts at every use, which gives the same values); the RMSNorm
-scales and the MoE router stay float32.  ``MAMBA``, ``MLSTM``, ``SLSTM``,
-M-RoPE and the stub frontends raise ``NotImplementedError`` (ROADMAP.md,
-queue 1); ``loss`` waits for the training slice.
+``cfg.post_block_norm``.  A Mamba layer is RMSNorm -> the Mamba mixer ->
+residual, then, as the reference's, RMSNorm -> MoE where ``_layer_is_moe``,
+else a dense MLP when ``cfg.d_ff > 0`` -> residual.  The layers are a
+``ModuleList``, run one after another in ``cfg.layer_kinds``'s order (the
+reference scans over stacked units).  gemma2's other options: the embedding
+scaled by sqrt(d_model) (cast to the model's dtype first, as the reference),
+tied embeddings (logits against ``embed``, no ``lm_head``), and the attention
+and logit softcaps.  The weights are held in ``cfg.dtype``, cast once (the
+reference keeps float32 and casts at every use, which gives the same
+values); the RMSNorm scales, the MoE router and the Mamba mixer's conv taps,
+biases, A and skip stay float32.  ``MLSTM``, ``SLSTM``, M-RoPE and the stub
+frontends raise ``NotImplementedError`` (ROADMAP.md, queue 1); ``loss``
+waits for the training slice.
 """
 from __future__ import annotations
 
@@ -27,14 +30,15 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, common, mla, moe as moe_mod
+from repro_torch.models import attention, common, mamba, mla, moe as moe_mod
 from repro_torch.models.config import LayerKind, ModelConfig
 from repro_torch.models.mlp import init_mlp_params, mlp_block, mlp_shapes
 
-Caches = list  # one attention.KVCache or mla.MLACache per layer
+Caches = list  # one attention.KVCache, mla.MLACache or mamba.MambaState per layer
 
-# The layer kinds the port runs: GQA attention and multi-head latent attention.
-_ATTN_KINDS = (*attention.ATTN_KINDS, LayerKind.MLA)
+# The layer kinds the port runs: GQA attention, multi-head latent attention
+# and the Mamba mixer.
+_PORTED_KINDS = (*attention.ATTN_KINDS, LayerKind.MLA, LayerKind.MAMBA)
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -58,10 +62,10 @@ def _layer_is_moe(cfg: ModelConfig, layer_idx: int) -> bool:
 
 def _check_ported(cfg: ModelConfig) -> None:
     for i, kind in enumerate(cfg.layer_kinds):
-        if kind not in _ATTN_KINDS:
+        if kind not in _PORTED_KINDS:
             raise NotImplementedError(f"{cfg.name}: layer {i} is {kind.value}; the port runs "
-                                      f"attn, attn_local and mla layers only (ROADMAP.md, "
-                                      f"queue 1)")
+                                      f"attn, attn_local, mla and mamba layers only "
+                                      f"(ROADMAP.md, queue 1)")
     for what, unported in ((f"the {cfg.frontend} frontend", cfg.frontend != "none"),
                            (f"{cfg.pos_embedding} positions",
                             cfg.pos_embedding not in ("rope", "none"))):
@@ -110,28 +114,71 @@ class AttnLayer(nn.Module):
             self.post_norm_mlp = _param((d,), torch.float32, device)
 
 
-def _apply_layer(layer: AttnLayer, x: torch.Tensor, positions: torch.Tensor,
+class MambaLayer(nn.Module):
+    """One ``LayerKind.MAMBA`` layer's weights: the mixer (its ``FLOAT32``
+    tensors in float32, the projections in the model's dtype), then a MoE
+    where ``_layer_is_moe`` (``is_moe``), else a dense MLP when ``cfg.d_ff >
+    0``, else none (the reference's ``_init_layer``)."""
+
+    kind = LayerKind.MAMBA
+
+    def __init__(self, cfg: ModelConfig, index: int, dtype: torch.dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        self.is_moe = _layer_is_moe(cfg, index)
+        self.norm = _param((d,), torch.float32, device)
+        self.mixer = nn.ParameterDict({
+            name: _param(shape, torch.float32 if name in mamba.FLOAT32 else dtype, device)
+            for name, shape in mamba.mamba_shapes(cfg).items()})
+        if self.is_moe or cfg.d_ff > 0:
+            self.norm_mlp = _param((d,), torch.float32, device)
+            self.mlp = (MoeWeights(d, cfg.moe, dtype, device) if self.is_moe
+                        else _params(mlp_shapes(d, cfg.d_ff, cfg.mlp_act), dtype, device))
+
+
+def _add(x: torch.Tensor, h: torch.Tensor):
+    """The residual sum ``x + h``: (the sum in x's dtype, its float32 value
+    before that rounding).  The reference's jitted forward rounds the residual
+    stream to the model's dtype, but the RMSNorm that reads a sum reads it
+    unrounded: under excess precision XLA drops the round trip through
+    bfloat16 between the add and the norm's cast to float32."""
+    s = x.float() + h
+    return s.to(x.dtype), s
+
+
+def _mlp(layer, x: torch.Tensor, x32: torch.Tensor, cfg: ModelConfig):
+    """The layer's MLP or MoE on RMSNorm(x): (out, the MoE's aux terms or None)."""
+    h = common.rms_norm(x32, layer.norm_mlp, cfg.norm_eps, x.dtype)
+    if layer.is_moe:
+        return moe_mod.moe_block(layer.mlp, h, cfg.moe)
+    return mlp_block(layer.mlp, h, cfg.mlp_act), None
+
+
+def _apply_layer(layer, x: torch.Tensor, x32: torch.Tensor, positions: torch.Tensor,
                  cfg: ModelConfig, cache):
-    """Returns (x, new_cache, the MoE's aux terms or None)."""
+    """``x``: the residual stream in the model's dtype, ``x32``: the float32
+    value of its last sum (``_add``).  Returns (x, x32, new_cache, the MoE's
+    aux terms or None)."""
     eps = cfg.norm_eps
-    h = common.rms_norm(x, layer.norm_attn, eps)
-    if layer.kind == LayerKind.MLA:
+    h = common.rms_norm(x32, layer.norm if layer.kind == LayerKind.MAMBA else layer.norm_attn,
+                        eps, x.dtype)
+    if layer.kind == LayerKind.MAMBA:
+        h, new_cache = mamba.mamba_block(layer.mixer, h, cfg, cache)
+    elif layer.kind == LayerKind.MLA:
         h, new_cache = mla.mla_block(layer.attn, h, positions, cfg, cache)
     else:
         h, new_cache = attention.attention_block(layer.attn, h, positions, cfg, layer.kind,
                                                  cache)
     if cfg.post_block_norm:
         h = common.rms_norm(h, layer.post_norm_attn, eps)
-    x = x + h
-    h = common.rms_norm(x, layer.norm_mlp, eps)
-    aux = None
-    if layer.is_moe:
-        h, aux = moe_mod.moe_block(layer.mlp, h, cfg.moe)
-    else:
-        h = mlp_block(layer.mlp, h, cfg.mlp_act)
+    x, x32 = _add(x, h)
+    if not hasattr(layer, "mlp"):                 # a Mamba layer without d_ff
+        return x, x32, new_cache, None
+    h, aux = _mlp(layer, x, x32, cfg)
     if cfg.post_block_norm:
         h = common.rms_norm(h, layer.post_norm_mlp, eps)
-    return x + h, new_cache, aux
+    x, x32 = _add(x, h)
+    return x, x32, new_cache, aux
 
 
 @torch.no_grad()
@@ -162,16 +209,21 @@ class LMModel(nn.Module):
         self.final_norm = _param((d,), torch.float32, self.device)
         if not cfg.tie_embeddings:
             self.lm_head = _param((d, vocab), self.dtype, self.device)
-        self.layers = nn.ModuleList(AttnLayer(cfg, kind, i, self.dtype, self.device)
-                                    for i, kind in enumerate(cfg.layer_kinds))
+        self.layers = nn.ModuleList(
+            MambaLayer(cfg, i, self.dtype, self.device) if kind == LayerKind.MAMBA
+            else AttnLayer(cfg, kind, i, self.dtype, self.device)
+            for i, kind in enumerate(cfg.layer_kinds))
 
     # ---------------- init ------------------------------------------------
     @torch.no_grad()
     def init(self, seed: int) -> "LMModel":
         """Seeded weights with the reference's distributions (unit-normal
-        embedding, fan-in truncated normals, zero norm scales and biases),
-        drawn on the model's device from a ``torch.Generator``: other numbers
-        than ``jax.random`` gives for the same seed."""
+        embedding, fan-in truncated normals, zero norm scales and biases; the
+        Mamba mixer's as ``mamba.init_mamba_params``), drawn on the model's
+        device from a ``torch.Generator``: other numbers than ``jax.random``
+        gives for the same seed.  A MoE's routed tensors are drawn in float32
+        one at a time, each copied into its parameter before the next, so
+        that ``init`` needs the weights plus one such tensor."""
         cfg, dev = self.cfg, self.device
         gen = torch.Generator(device=dev).manual_seed(seed)
         self.embed.copy_(common.embed_init(gen, tuple(self.embed.shape), device=dev))
@@ -180,12 +232,18 @@ class LMModel(nn.Module):
             self.lm_head.copy_(common.dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                                  device=dev))
         for layer in self.layers:
-            init_attn = (mla.init_mla_params if layer.kind == LayerKind.MLA
-                         else attention.init_attn_params)
-            _copy_into(layer.attn, init_attn(gen, cfg, dev))
-            _copy_into(layer.mlp, moe_mod.init_moe_params(gen, cfg.d_model, cfg.moe, dev)
-                       if layer.is_moe
-                       else init_mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act, dev))
+            if layer.kind == LayerKind.MAMBA:
+                _copy_into(layer.mixer, mamba.init_mamba_params(gen, cfg, dev))
+            else:
+                _copy_into(layer.attn, (mla.init_mla_params if layer.kind == LayerKind.MLA
+                                        else attention.init_attn_params)(gen, cfg, dev))
+            if layer.is_moe:
+                for name, w in moe_mod.draw_moe_params(gen, cfg.d_model, cfg.moe, dev):
+                    _copy_into(layer.mlp, {name: w})
+                    del w
+            elif hasattr(layer, "mlp"):
+                _copy_into(layer.mlp, init_mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act,
+                                                      dev))
             for name, p in layer.named_parameters(recurse=False):
                 p.zero_()                              # the RMSNorm scales
         return self
@@ -197,9 +255,11 @@ class LMModel(nn.Module):
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.dtype)
         return x
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+    def _logits(self, x32: torch.Tensor) -> torch.Tensor:
+        """The logits from the float32 value of the residual stream's last
+        sum (``_add``)."""
         cfg = self.cfg
-        x = common.rms_norm(x, self.final_norm, cfg.norm_eps)
+        x = common.rms_norm(x32, self.final_norm, cfg.norm_eps, self.dtype)
         head = self.embed.T if cfg.tie_embeddings else self.lm_head
         return common.softcap((x @ head).float(), cfg.logit_softcap)
 
@@ -220,21 +280,27 @@ class LMModel(nn.Module):
             start = 0 if caches is None else caches[0].index
             positions = (start + torch.arange(s, device=self.device)).expand(b, s)
         x = self._embed(inputs)
+        x32 = x.float()
         new_caches = None if caches is None else []
         aux = {"aux_loss": 0.0, "z_loss": 0.0, "fraction_dropped": 0.0}
         for i, layer in enumerate(self.layers):
-            x, cache, layer_aux = _apply_layer(layer, x, positions, cfg,
-                                               None if caches is None else caches[i])
+            x, x32, cache, layer_aux = _apply_layer(layer, x, x32, positions, cfg,
+                                                    None if caches is None else caches[i])
             if caches is not None:
                 new_caches.append(cache)
             if layer_aux is not None:
                 aux = {k: aux[k] + layer_aux[k] for k in aux}
-        return self._logits(x), new_caches, aux
+        return self._logits(x32), new_caches, aux
 
     # ---------------- caches -------------------------------------------------
     def init_caches(self, batch: int, max_len: int, dtype=torch.bfloat16) -> Caches:
-        return [(mla.init_mla_cache if layer.kind == LayerKind.MLA else attention.init_kv_cache)(
-                    self.cfg, batch, max_len, dtype, self.device)
+        """A cache per layer: ``dtype`` (bfloat16 by default, as the
+        reference's) for the attention layers' keys and values; a float32
+        ``MambaState`` for a Mamba layer, whatever ``dtype``."""
+        cfg, dev = self.cfg, self.device
+        return [mamba.init_mamba_state(cfg, batch, dev) if layer.kind == LayerKind.MAMBA
+                else (mla.init_mla_cache if layer.kind == LayerKind.MLA
+                      else attention.init_kv_cache)(cfg, batch, max_len, dtype, dev)
                 for layer in self.layers]
 
 
@@ -261,7 +327,7 @@ def params_from_reference(cfg: ModelConfig, tree: dict) -> dict[str, torch.Tenso
     model.init(key))``) as the port's float32 state dict, for
     ``load_state_dict`` (which casts to the model's dtype): ``units`` unstacked
     into one entry per layer, the projections reshaped to the port's
-    matrices."""
+    matrices (the Mamba mixer's tensors have the reference's shapes)."""
     shapes = {k: v.shape for k, v in LMModel(cfg, device="meta").state_dict().items()}
     flat = _flatten({k: v for k, v in tree.items() if k not in ("prefix", "units")}, "", {})
     layers = list(tree["prefix"]) + [_unit_slice(unit, u) for u in range(cfg.num_units)

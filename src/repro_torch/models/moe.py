@@ -1,6 +1,6 @@
 """Mixture-of-Experts with static capacity (counterpart of
 ``repro/models/moe.py``): deepseek-v2's 2 shared + 64 / 160 routed experts,
-top-6.
+top-6, and jamba's 16 routed experts, top-2.
 
 The same function as the reference, in another layout.  Each token's router
 logits are float32 (float32 router weights against the activations cast up),
@@ -19,7 +19,6 @@ decode step reads every expert's weights.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models import common
 from repro_torch.models.config import MoeConfig
@@ -41,16 +40,18 @@ def moe_shapes(d_model: int, moe: MoeConfig) -> dict[str, tuple[int, ...]]:
             "w_down": (e, dx, d_model)}
 
 
-def init_moe_params(gen: torch.Generator, d_model: int, moe: MoeConfig, device=None) -> dict:
-    """float32 weights drawn as the reference's: the experts' fan-in is their
-    second axis (d_model, or d_expert for ``w_down``)."""
-    params = {name: common.dense_init(gen, shape, in_axis=0 if name == "router" else 1,
+def draw_moe_params(gen: torch.Generator, d_model: int, moe: MoeConfig, device=None):
+    """Yields (name, float32 weights) drawn as the reference's, one tensor at
+    a time, so that a caller can copy each into its parameter before the
+    next is drawn: the router, ``w_gate``, ``w_up``, ``w_down`` (the experts'
+    fan-in is their second axis: d_model, or d_expert for ``w_down``), then
+    the ``shared`` experts' MLP as a dict."""
+    for name, shape in moe_shapes(d_model, moe).items():
+        yield name, common.dense_init(gen, shape, in_axis=0 if name == "router" else 1,
                                       device=device)
-              for name, shape in moe_shapes(d_model, moe).items()}
     if moe.num_shared > 0:
-        params["shared"] = init_mlp_params(gen, d_model, moe.num_shared * moe.d_expert, "silu",
-                                           device)
-    return params
+        yield "shared", init_mlp_params(gen, d_model, moe.num_shared * moe.d_expert, "silu",
+                                        device)
 
 
 def route(logits: torch.Tensor, moe: MoeConfig, cap: int):
@@ -89,7 +90,7 @@ def moe_block(params, x: torch.Tensor, moe: MoeConfig) -> tuple[torch.Tensor, di
     buf = x.new_zeros((e, cap + 1, d))
     buf[top_e, slot] = xt[:, None, :].expand(t, k, d)
     ex_in = buf[:, :cap]
-    h = F.silu(torch.bmm(ex_in, params["w_gate"])) * torch.bmm(ex_in, params["w_up"])
+    h = common.silu(torch.bmm(ex_in, params["w_gate"])) * torch.bmm(ex_in, params["w_up"])
     ex_out = torch.bmm(h, params["w_down"])                                  # (E, C, D)
 
     # combine: each token's k rows (a dropped one reads slot 0, weight 0)

@@ -14,19 +14,21 @@ wherever the reference's top-2 margin exceeds 0.125.
 
 Routing gate (bfloat16).  A MoE layer's choice of experts is a step
 function of its input: where the k-th and (k+1)-th router probabilities
-nearly tie, a last-bit difference upstream (the port's ``F.silu`` rounds
-once where ``jax.nn.silu`` rounds four times; attention sums in another
-order) picks another expert, and that token's logits, its sequence's later
-positions and, through the capacity, other tokens' slots move by far more
-than 0.0625 (0.43 here).  Both sides' choices are recorded at every MoE call
-(the reference's through ``jax.debug.callback``); each position keeps the
-bound until its sequence's first position whose experts or kept slots
-differ, and every such first flip must be a near tie on the reference's
-side (``FLIP_MARGIN``).  Measured (x86-64, JAX 0.9, torch 2.13):
+nearly tie, a last-bit difference upstream (MLA's attention sums in
+another order) picks another expert, and that token's logits, its
+sequence's later positions and, through the capacity, other tokens' slots
+move by far more than 0.0625 (0.43 here).  Both sides' choices are recorded
+at every MoE call (the reference's through ``jax.debug.callback``); each
+position keeps the bound until its sequence's first position whose experts
+or kept slots differ, and every such first flip must be a near tie on the
+reference's side (``torch_lm_cases.FLIP_MARGIN``).  Measured (x86-64, JAX
+0.9, torch 2.13; the port's silu rounding as ``jax.nn.silu`` and its norms
+reading unrounded residual sums, ``models/model.py::_add``):
 deepseek-v2-lite-16b-reduced flips in bfloat16 on these inputs, at
-reference top-k margins of 2.4e-4 to 2.9e-3: 29 of the forward's 64
-positions and 19 of the 64 decode positions stay held, within 0.039;
-deepseek-v2-236b-reduced does not flip (all 128 held, within 0.047).  In
+reference top-k margins of 2.4e-4 to 1.04e-3: 29 of the forward's 64
+positions and 49 of the 64 decode positions stay held, within 0.031 and
+0.043; deepseek-v2-236b-reduced does not flip (all 128 held, within 0.047).
+(With ``F.silu`` and norms of rounded sums: 29 and 19 held, within 0.039.)  In
 float32 neither flips: the smallest top-k margins the reference saw were
 1.8e-4 (lite) and 2.1e-4 (236b), far above the ~1e-7 by which the two
 sides' router inputs differ.
@@ -43,122 +45,24 @@ import torch
 
 import torch_lm_cases as cases
 from repro.configs import get_config as ref_get_config
-from repro.models import moe as ref_moe
 from repro.models.model import _layer_is_moe as ref_layer_is_moe
 from repro.models.model import count_params as ref_count_params
 from repro.serving.engine import ServeEngine as RefServeEngine
 from repro_torch import configs as port_configs
 from repro_torch.launch import serve
-from repro_torch.models import moe
 from repro_torch.models.config import LayerKind
 from repro_torch.models.model import LMModel, _layer_is_moe, count_params
 from repro_torch.serving import ServeEngine
 
 S = 32                      # two of the reduced configs' chunks of 16
-# A token may pick another set of experts than the reference only where the
-# reference's k-th and (k+1)-th router probabilities lie within this of each
-# other: bfloat16 router inputs a step apart move a probability by ~1e-3
-# (first flips seen: 4.7e-5 to 2.9e-3).
-FLIP_MARGIN = 0.01
-
-
-# --------------------------------------------------------------------------
-# routing, recorded on both sides
-# --------------------------------------------------------------------------
-class Routing:
-    """Every MoE call's expert choices (T, k), in call order, on both sides:
-    ``ref`` from the reference's ``moe_block`` (patched to add a debug
-    callback; under jit the callback runs at every call), ``port`` from the
-    port's; with the reference's top-k minus top-(k+1) router probability
-    of every token."""
-
-    def __init__(self, monkeypatch):
-        self.ref, self.port = [], []
-        ref_block, port_block = ref_moe.moe_block, moe.moe_block
-
-        def ref_recording(params, x, cfg):
-            out, aux = ref_block(params, x, cfg)
-            logits = jnp.einsum("td,de->te", x.reshape(-1, x.shape[-1]).astype(jnp.float32),
-                                params["router"].astype(jnp.float32))
-            top_p, top_e = jax.lax.top_k(jax.nn.softmax(logits, axis=-1), cfg.top_k + 1)
-            jax.debug.callback(self._ref, params["router"][0, 0], top_e[:, :cfg.top_k],
-                               top_p[:, cfg.top_k - 1] - top_p[:, cfg.top_k])
-            return out, aux
-
-        def port_recording(params, x, cfg):
-            logits = x.reshape(-1, x.shape[-1]).float() @ params["router"]
-            top_e = moe.route(logits, cfg, moe._capacity(logits.shape[0], cfg))[3]
-            self.port.append((float(params["router"][0, 0]), top_e.numpy()))
-            return port_block(params, x, cfg)
-
-        monkeypatch.setattr(ref_moe, "moe_block", ref_recording)
-        monkeypatch.setattr(moe, "moe_block", port_recording)
-
-    def _ref(self, key, top_e, margin):
-        self.ref.append((float(key), np.asarray(top_e), np.asarray(margin)))
-
-    def take(self):
-        """The calls since the last take, in the port's call order (layer by
-        layer, step by step), each paired with the reference's call on the
-        same layer (its router's first weight): [(ref experts, port experts,
-        ref margins)]."""
-        assert len(self.ref) == len(self.port) and self.ref, (len(self.ref), len(self.port))
-        by_layer = {}
-        for key, top_e, margin in self.ref:
-            by_layer.setdefault(key, []).append((top_e, margin))
-        pairs = []
-        for key, port_e in self.port:
-            ref_e, margin = by_layer[key].pop(0)
-            pairs.append((ref_e, port_e, margin))
-        self.ref, self.port = [], []
-        return pairs
-
-
-def _slots(top_e: np.ndarray, e: int) -> np.ndarray:
-    """Choice-major slot of each (token, choice) at its expert."""
-    t, k = top_e.shape
-    seen = np.zeros(e, np.int64)
-    slot = np.empty(k * t, np.int64)
-    for i, x in enumerate(top_e.T.reshape(-1)):
-        slot[i], seen[x] = seen[x], seen[x] + 1
-    return slot.reshape(k, t).T
-
-
-def _taint(pairs, cfg, tainted: np.ndarray, flip_margins: list) -> np.ndarray:
-    """Carry ``tainted`` (B, S: positions whose inputs may differ between the
-    two sides) through one forward's MoE calls, in layer order.  A token whose
-    experts or kept slots differ taints itself and its sequence's later
-    positions.  A token whose set of experts differs while its inputs were
-    still held is a flip of the port's own making: its reference top-k margin
-    must be a near tie (``FLIP_MARGIN``) and is kept in ``flip_margins``.
-    (Two experts in another order, a near tie between choices, change only
-    the slots: ``moved``.)"""
-    b, s = tainted.shape
-    e = cfg.moe.num_experts
-    for ref_e, port_e, margin in pairs:
-        cap = moe._capacity(ref_e.shape[0], cfg.moe)
-        flips = (np.sort(ref_e, 1) != np.sort(port_e, 1)).any(1).reshape(b, s)
-        first = flips & ~tainted
-        assert (margin.reshape(b, s)[first] < FLIP_MARGIN).all(), margin.reshape(b, s)[first]
-        flip_margins.extend(margin.reshape(b, s)[first].tolist())
-        moved = ((_slots(ref_e, e) < cap) != (_slots(port_e, e) < cap)).any(1).reshape(b, s)
-        tainted = np.logical_or.accumulate(tainted | flips | moved, axis=1)
-    return tainted
 
 
 # --------------------------------------------------------------------------
 # LMModel.apply
 # --------------------------------------------------------------------------
-def _argmax_agree(got, want, held, margin_bound):
-    top2 = np.sort(want, axis=-1)[..., -2:]
-    clear = ((top2[..., 1] - top2[..., 0]) > margin_bound) & held
-    np.testing.assert_array_equal(got.argmax(-1)[clear], want.argmax(-1)[clear])
-    return int(clear.sum())
-
-
 @pytest.mark.parametrize("name", cases.DEEPSEEK)
 def test_apply_float32_with_and_without_cache(name, monkeypatch):
-    routing = Routing(monkeypatch)
+    routing = cases.Routing(monkeypatch)
     ref, params, ref_apply, port = cases.model_pair(name, "float32")
     assert [layer.is_moe for layer in port.layers] == [False, True, True]
     assert [layer.kind for layer in port.layers] == [LayerKind.MLA] * 3
@@ -187,7 +91,7 @@ def test_apply_float32_with_and_without_cache(name, monkeypatch):
 
 @pytest.mark.parametrize("name", cases.DEEPSEEK)
 def test_apply_bfloat16_with_and_without_cache(name, monkeypatch):
-    routing = Routing(monkeypatch)
+    routing = cases.Routing(monkeypatch)
     ref, params, ref_apply, port = cases.model_pair(name)
     assert port.embed.dtype == torch.bfloat16
     assert all(layer.mlp.router.dtype == torch.float32 for layer in port.layers if layer.is_moe)
@@ -195,22 +99,22 @@ def test_apply_bfloat16_with_and_without_cache(name, monkeypatch):
     want = np.asarray(ref_apply(params, jnp.asarray(toks), None)[0])
     got, _ = cases.port_logits(port, toks)
     flip_margins = []
-    held = ~_taint(routing.take(), port.cfg, np.zeros((2, S), bool), flip_margins)
+    held = ~cases.taint(routing.take(), port.cfg, np.zeros((2, S), bool), flip_margins)
     np.testing.assert_allclose(got[held], want[held], atol=cases.BF16_ATOL, rtol=0)
     n_held = int(held.sum())
-    tokens_held = _argmax_agree(got, want, held, 2 * cases.BF16_ATOL)
+    tokens_held = cases.argmax_agree(got, want, held, 2 * cases.BF16_ATOL)
     # decode one token at a time through the bfloat16 caches
     ref_caches, caches = ref.init_caches(2, S), port.init_caches(2, S)
     tainted = np.zeros((2, 1), bool)
     for t in range(S):
         want, ref_caches = ref_apply(params, jnp.asarray(toks[:, t:t + 1]), ref_caches)
         got, caches = cases.port_logits(port, toks[:, t:t + 1], caches)
-        tainted = _taint(routing.take(), port.cfg, tainted, flip_margins)
+        tainted = cases.taint(routing.take(), port.cfg, tainted, flip_margins)
         alive = ~tainted[:, 0]
         want = np.asarray(want)
         np.testing.assert_allclose(got[alive], want[alive], atol=cases.BF16_ATOL, rtol=0)
         n_held += int(alive.sum())
-        tokens_held += _argmax_agree(got, want, alive[:, None], 2 * cases.BF16_ATOL)
+        tokens_held += cases.argmax_agree(got, want, alive[:, None], 2 * cases.BF16_ATOL)
     assert n_held >= S and tokens_held > 0, (n_held, tokens_held, flip_margins)
 
 
@@ -230,7 +134,7 @@ def test_serve_engine_float32(name):
 def test_serve_engine_bfloat16(name, monkeypatch):
     """One wave of 2 requests: tokens equal up to each request's first token
     whose reference margin is at most 0.125 or whose step's routing differs."""
-    routing = Routing(monkeypatch)
+    routing = cases.Routing(monkeypatch)
     ref, params, _, port = cases.model_pair(name)
     prompts = cases.prompts(port.cfg.vocab_size, 2, seed=33)
     got = ServeEngine(port, batch=2, max_len=24).generate(prompts, 8)
@@ -239,7 +143,7 @@ def test_serve_engine_bfloat16(name, monkeypatch):
     pairs = routing.take()                   # step by step, layer by layer
     tainted, alive = np.zeros((2, 1), bool), []
     for t in range(0, len(pairs), n_moe):
-        tainted = _taint(pairs[t:t + n_moe], port.cfg, tainted, [])
+        tainted = cases.taint(pairs[t:t + n_moe], port.cfg, tainted, [])
         alive.append(~tainted[:, 0])
     alive = np.stack(alive, axis=1)           # (request, step)
     held = 0

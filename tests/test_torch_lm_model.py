@@ -30,7 +30,7 @@ from repro.models.config import LayerKind as RefLayerKind
 from repro.models.model import count_params as ref_count_params
 from repro_torch import configs as port_configs
 from repro_torch.models import attention, common, mlp
-from repro_torch.models.config import LayerKind, MambaConfig
+from repro_torch.models.config import LayerKind
 from repro_torch.models.model import LMModel, count_params, params_from_reference
 
 MODELS = (*cases.ARCHS, "tiny")
@@ -315,11 +315,12 @@ def test_yi_9b_full_width_count():
 
 
 def test_registry_covers_the_ported_archs_only():
-    # gemma2: tests/test_torch_gemma2.py; deepseek-v2: tests/test_torch_deepseek.py
-    ported = (*cases.ARCHS, "gemma2-27b", *cases.DEEPSEEK)
+    # gemma2: tests/test_torch_gemma2.py; deepseek-v2: tests/test_torch_deepseek.py;
+    # jamba: tests/test_torch_jamba.py
+    ported = (*cases.ARCHS, "gemma2-27b", *cases.DEEPSEEK, "jamba-1.5-large-398b")
     assert port_configs.ARCH_IDS == ported
     assert set(port_configs.all_configs(reduced=True)) == set(ported)
-    for arch in ("xlstm-350m", "qwen2-vl-7b", "jamba-1.5-large-398b", "musicgen-large"):
+    for arch in ("xlstm-350m", "qwen2-vl-7b", "musicgen-large"):
         with pytest.raises(KeyError, match="not ported yet"):
             port_configs.get_config(arch)
     with pytest.raises(KeyError, match="unknown arch"):
@@ -369,11 +370,12 @@ def test_gemma2_option_alone_matches_reference(change):
 
 
 @pytest.mark.parametrize("change", [
-    dict(pattern_unit=(LayerKind.MAMBA,), mamba=MambaConfig()),
+    dict(pattern_unit=(LayerKind.MLSTM,)),
+    dict(pattern_unit=(LayerKind.ATTN, LayerKind.SLSTM)),
     dict(pattern_unit=(LayerKind.MLSTM, LayerKind.SLSTM)),
     dict(pos_embedding="mrope"),
     dict(frontend="audio_stub"),
-], ids=["mamba", "xlstm", "mrope", "frontend"])
+], ids=["mlstm", "slstm", "xlstm", "mrope", "frontend"])
 def test_unported_layers_raise(change):
     cfg = dataclasses.replace(cases.TINY, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):

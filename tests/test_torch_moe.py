@@ -10,10 +10,11 @@ Tolerances: float32 outputs and aux terms within ``atol = rtol = 1e-5``
 (tests/torch_lm_cases.py's; the two sides sum the k gated expert rows and
 the shared experts' products in other orders); the experts picked and
 ``fraction_dropped`` equal.  bfloat16 outputs within ``cases.bf16_steps``
-(4 bfloat16 steps of the binade of the largest reference output; measured 1
-to 2): the reference's ``jax.nn.silu`` rounds ``exp(-x)``, ``1 + exp(-x)``,
-its reciprocal and the product each to bfloat16 where ``F.silu`` rounds
-once, so about half the expert activations differ in their last bit.
+(4 bfloat16 steps of the binade of the largest reference output): the
+experts' silu (``common.silu``) rounds ``exp(-x)``, ``1 + exp(-x)``, its
+reciprocal and the product each to bfloat16 as the reference's
+``jax.nn.silu`` does, but the two sides sum the gated expert rows in other
+orders.
 """
 import dataclasses
 
