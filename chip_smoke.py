@@ -33,8 +33,9 @@ Phases (any failure exits nonzero):
     kernel, plain and bound times (every kernel time from a profiler row of
     that kernel's symbol; the plain versions' and SDPA's, the device time of
     a call: the device rows of two agreeing traces for the plain stereo
-    versions of thousands of launches, CUDA events around calls queued
-    behind a spin kernel for SDPA and the plain versions of a few);
+    versions and the plain flash (hundreds to thousands of launches a
+    call: XLA's exp and FMAs in float64 steps), CUDA events around calls
+    queued behind a spin kernel for SDPA and the plain versions of a few);
     flash attention at qwen2.5-32b's width against its plain version, with
     ``F.scaled_dot_product_attention``'s time, and how many of its outputs
     lie outside FLASH_TOL of the plain version, beside it as a yardstick;
@@ -42,7 +43,11 @@ Phases (any failure exits nonzero):
     against 1, 17, 31 and 4096 keys, full; prefill-shaped 16 x 16, causal)
     and at jamba-1.5-large-398b's decode (B=4, H=64, 31 keys), the decode
     shapes of 31 and 4096 keys timed with the kernel's byte bound, the path's
-    (yi-9b's 4, jamba's 8 KV heads read once) and SDPA's time; flash in
+    (yi-9b's 4, jamba's 8 KV heads read once) and SDPA's time; flash at the
+    stub-frontend backbones' shapes, each timed with its bound, the path's
+    and SDPA's time: qwen2-vl-7b's 28 query heads (prefill (4, 28, 256, 256,
+    128) causal, decode (4, 28, 1, 272, 128)) and musicgen-large's head width
+    64 (prefill (4, 32, 64, 64, 64) causal, decode (4, 32, 1, 80, 64)); flash in
     bfloat16 at gemma2-27b's shapes with its softcap of 50 (q scaled so that
     scores span about +-150): decode (4, 32, 1, 31, 128), full; prefill-shaped
     (1, 32, 8192, 8192, 128), causal, with the local layers' window of 4096
@@ -144,7 +149,27 @@ Phases (any failure exits nonzero):
     request's first step whose experts differ (that flip must be a near tie,
     FLIP_MARGIN, on the plain path's router), the reduced float32 model
     against the CPU and ``serve lm --arch jamba-1.5-large-398b``;
-16. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
+16. xlstm-350m at full width (24 layers, 21 mLSTM and 3 sLSTM; 528,729,256
+    parameters, 0.98 GiB) as in phase 11: no flash launch, no kernel-vs-plain
+    comparison (nothing to swap); then a float32 copy of the model over
+    XLSTM_CHUNKED_S = 128 positions without a state (the chunked mLSTM, two
+    chunks a layer) against as many decode steps through the states, within
+    XLSTM_CHUNKED_TOL;
+17. qwen2-vl-7b at full width (28 layers, M-RoPE, qkv biases; 7,615,616,512
+    parameters, 14.19 GiB): 4 sequences of 256 seeded patch embeddings with
+    the (t, h, w) positions of a 16 x 16 grid prefilled into caches of 273
+    positions through ``LMModel.apply``, then 16 greedy decode steps of token
+    ids through ``decode_step``: flash launched once per layer for the
+    prefill and per step; the prefill's and the steps' times, tokens/s,
+    memory, a profiled step; the prefill's and every step's logits on the
+    kernel path against the plain-attention path on the same tokens (within
+    LM_LOGIT_ULPS bfloat16 steps, tokens equal above 2 * delta); the reduced
+    float32 model against the port's CPU run on embeddings without a cache
+    and through a prefill and 8 decode steps;
+18. the same for musicgen-large (48 layers, 32 heads of 64, sinusoidal
+    positions, a plain GeLU MLP; 2,424,506,368 parameters, 4.52 GiB) on 64
+    frame embeddings and caches of 81 positions;
+19. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
 
 Every time is printed with the card's name and power limit.  Each profiled
 frame or wave also leaves its device-side rows, by time, in
@@ -248,6 +273,22 @@ LM_KV_HEADS = 4           # yi-9b's KV heads: each serves 8 of the 32 query head
 FLASH_JAMBA_DECODE = (4, 64, 1, 31, 128)
 JAMBA_KV_HEADS = 8
 FLASH_DECODE_TIMED = (FLASH_DECODE[-1], FLASH_DECODE_LONG, FLASH_JAMBA_DECODE)
+# The stub-frontend backbones' serving shapes (phases 17-18): batch 4, the
+# frontend's embeddings prefilled into the caches, then FRONTEND_NEW greedy
+# decode steps of token ids.  qwen2-vl-7b (src/repro/configs/qwen2_vl_7b.py:
+# 28 query heads of 128 after the GQA expansion of its 4 KV heads, M-RoPE) on
+# the 256 patches of a 16 x 16 grid; musicgen-large (src/repro/configs/
+# musicgen_large.py: 32 heads of 64, MHA, sinusoidal positions) on 64 audio
+# frames.  Flash at their prefill (causal) and at their longest decode step
+# (full attention over the prefill and FRONTEND_NEW tokens), each timed beside
+# its bound and SDPA's time (phase 3).
+FRONTEND_BATCH = 4
+FRONTEND_NEW = 16
+QWEN_VL_GRID = 16
+MUSICGEN_FRAMES = 64
+QWEN_VL_KV_HEADS = 4
+FLASH_FRONTEND = (("qwen2-vl-7b", QWEN_VL_KV_HEADS, (4, 28, 256, 256, 128), (4, 28, 1, 272, 128)),
+                  ("musicgen-large", 32, (4, 32, 64, 64, 64), (4, 32, 1, 80, 64)))
 # Flash at gemma2-27b's shapes (src/repro/configs/gemma2_27b.py: 32 query
 # heads of 128 after the GQA expansion of its 16 KV heads, a score softcap of
 # 50 on every layer, a sliding window of 4096 on every other).  Decode is
@@ -276,7 +317,7 @@ WARM_BAND = 8             # the service's default warm band
 VIDEO_FRAMES = 5          # frames of the warm video phase
 VIDEO_CUT = 3             # its scene cut
 BASELINE_FRAMES = 4       # the hybrid baseline: one warm-up frame and three timed
-# LM serving (phases 11-15): yi-9b, gemma2-27b and deepseek-v2-lite-16b, each
+# LM serving (phases 11-16): yi-9b, gemma2-27b and deepseek-v2-lite-16b, each
 # at full width, all layers, bfloat16, seeded weights; ServeEngine(batch=4,
 # max_len=33) on 8 requests of 4-16 prompt tokens (np.random.default_rng(0),
 # drawn as the launcher's serve_lm draws them) and 16 new tokens each; then,
@@ -285,10 +326,19 @@ BASELINE_FRAMES = 4       # the hybrid baseline: one warm-up frame and three tim
 # card: one dense layer, three MoE of 160 experts; 13,302,903,808
 # parameters, 24.78 GiB) and jamba-1.5-large-398b (742 GiB: Mamba + MLP,
 # Mamba + MoE, Mamba + MLP, attention + MoE of 16 experts; its 8-layer unit
-# cut to 4; 23,021,379,584 parameters, 42.88 GiB).
+# cut to 4; 23,021,379,584 parameters, 42.88 GiB); then xlstm-350m at full
+# width as the first three.
 LM_CUT_LAYERS = 4
 LM_ARCHS = (("yi-9b", 0), ("gemma2-27b", 0), ("deepseek-v2-lite-16b", 0),
-            ("deepseek-v2-236b", LM_CUT_LAYERS), ("jamba-1.5-large-398b", LM_CUT_LAYERS))
+            ("deepseek-v2-236b", LM_CUT_LAYERS), ("jamba-1.5-large-398b", LM_CUT_LAYERS),
+            ("xlstm-350m", 0))
+# xlstm-350m's chunked mLSTM (phase 16): a float32 copy of the model over
+# XLSTM_CHUNKED_S positions without a state (two chunks of 64 a layer)
+# against as many decode steps through the states, within the CPU tests'
+# tolerance (tests/test_torch_xlstm.py: 5.5e-6 seen on the CPU at full width
+# on logits up to 5.3, 1.4e-6 reduced).
+XLSTM_CHUNKED_S = 128
+XLSTM_CHUNKED_TOL = (1e-5, 1e-5)
 LM_BATCH = 4
 LM_REQUESTS = 8
 LM_PROMPT_LEN = 16
@@ -456,8 +506,10 @@ def main() -> int:
     def traced_rows(fn, reps: int, what: str) -> list:
         """The device rows of a trace of ``reps`` calls of ``fn``.  A trace
         that caught no device activity at all (CUPTI now and then hands back
-        none) is taken again, up to five times; then the run fails."""
-        for _ in range(5):
+        none: a trace of a few long flash launches came back empty five
+        times in a row once) is taken again, up to twenty times; then the
+        run fails."""
+        for _ in range(20):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
                     fn()
@@ -466,7 +518,7 @@ def main() -> int:
             if traced:
                 return traced
             print(f"the trace of {what} caught no device activity; taken again")
-        raise AssertionError(f"five traces of {what} caught no device activity")
+        raise AssertionError(f"twenty traces of {what} caught no device activity")
 
     def kernel_ms(fn, kernel: str, reps: int) -> tuple[float, float]:
         """(the kernel's own device time per launch from the profiler, the
@@ -1119,7 +1171,7 @@ def main() -> int:
             "flash_attention_f32_kernel"
         ms, call = kernel_ms(lambda: flash_kernel.flash_attention(q, k, v, causal=causal),
                              symbol, 5)
-        plain, plain_call = queued_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal), 3,
+        plain, plain_call = traced_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal), 2,
                                       "plain flash")
         library, library_call = queued_ms(
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal), 10, "SDPA")
@@ -1145,11 +1197,19 @@ def main() -> int:
     flash_out = {(dtype, causal): check_flash(dtype, causal)
                  for dtype in (torch.float32, torch.bfloat16) for causal in (True, False)}
 
-    def check_flash_lm(shape, causal, arch="yi-9b", kv_heads=LM_KV_HEADS):
+    def visible_pairs(sq, skv, causal, window) -> int:
+        """(query, key) pairs a head computes: row i sees min(i + 1, window)
+        keys when causal (Sq <= Skv), all Skv otherwise."""
+        if not causal:
+            return sq * skv
+        return int(np.minimum(np.arange(1, sq + 1), window or sq).sum())
+
+    def check_flash_lm(shape, causal, arch="yi-9b", kv_heads=LM_KV_HEADS, timed=None):
         """The kernel against its plain version at an LM serving shape of
-        ``arch``, in bfloat16; at the decode shapes of FLASH_DECODE_TIMED also
-        timed, with the kernel's and the path's byte bounds (``kv_heads``
-        read once) and scaled_dot_product_attention's device time."""
+        ``arch``, in bfloat16; ``timed`` (by default at the decode shapes of
+        FLASH_DECODE_TIMED) also timed, with the kernel's bound over the
+        visible pairs, the path's byte bound (``kv_heads`` read once) and
+        scaled_dot_product_attention's device time."""
         b, h, sq, skv, d = shape
         gen = torch.Generator().manual_seed(1)
         q, k, v = (torch.randn((b, h, n, d), generator=gen).to(dev, torch.bfloat16)
@@ -1164,19 +1224,19 @@ def main() -> int:
         err = float(diff.max())
         line = (f"kernel flash_attention {label} {shape}: {over} of {got.numel()} outside atol "
                 f"{atol} + rtol {rtol} x |plain|, max_abs_err {err}")
-        if shape in FLASH_DECODE_TIMED:
+        if shape in FLASH_DECODE_TIMED if timed is None else timed:
             nbytes = nbytes_of(q, k, v, got)
-            # the path's attention: q, out, and the prefix of kv_heads heads
+            # the path's attention: q, out, and the keys and values of kv_heads heads
             gqa_bytes = nbytes_of(q, got) + 2 * b * kv_heads * skv * d * k.element_size()
-            ops = 4 * b * h * sq * skv * d
+            ops = 4 * b * h * visible_pairs(sq, skv, causal, 0) * d
             t_ops = ops / FLASH_PEAK_FLOPS["bfloat16"] * 1e3
             t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
             b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
             gqa_ms = max(gqa_bytes / PEAK_BYTES_PER_S * 1e3, t_ops)
             ms, call = kernel_ms(lambda: flash_kernel.flash_attention(q, k, v, causal=causal),
                                  "flash_attention_bf16_kernel", 200)
-            plain, plain_call = queued_ms(
-                lambda: ref.flash_attention_ref(q, k, v, causal=causal), 50, "plain flash")
+            plain, plain_call = traced_ms(
+                lambda: ref.flash_attention_ref(q, k, v, causal=causal), 5, "plain flash")
             library, library_call = queued_ms(
                 lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal), 200, "SDPA")
             sdpa_rows = traced_rows(
@@ -1199,13 +1259,10 @@ def main() -> int:
     check_flash_lm(FLASH_PREFILL, causal=True)
     check_flash_lm(FLASH_JAMBA_DECODE, causal=False, arch="jamba-1.5-large-398b",
                    kv_heads=JAMBA_KV_HEADS)
-
-    def visible_pairs(sq, skv, causal, window) -> int:
-        """(query, key) pairs a head computes: row i sees min(i + 1, window)
-        keys when causal (Sq <= Skv), all Skv otherwise."""
-        if not causal:
-            return sq * skv
-        return int(np.minimum(np.arange(1, sq + 1), window or sq).sum())
+    # the stub-frontend backbones: 28 query heads (qwen2-vl), head width 64 (musicgen)
+    for arch, kv_heads, prefill, decode in FLASH_FRONTEND:
+        check_flash_lm(prefill, causal=True, arch=arch, kv_heads=kv_heads, timed=True)
+        check_flash_lm(decode, causal=False, arch=arch, kv_heads=kv_heads, timed=True)
 
     def flex_yardstick(q, k, v, causal, window, softcap, want, atol, rtol):
         """torch.nn.attention.flex_attention, compiled, with the softcap as a
@@ -1269,8 +1326,8 @@ def main() -> int:
         reps = 200 if sq == 1 else 5
         ms, call = kernel_ms(lambda: flash_kernel.flash_attention(q, k, v, **opts),
                              "flash_attention_bf16_kernel", reps)
-        plain, plain_call = queued_ms(lambda: ref.flash_attention_ref(q, k, v, **opts),
-                                      50 if sq == 1 else 3, "plain flash")
+        plain, plain_call = traced_ms(lambda: ref.flash_attention_ref(q, k, v, **opts),
+                                      5 if sq == 1 else 1, "plain flash")
         library, lib_over, note = flex_yardstick(q, k, v, causal, window, GEMMA2_SOFTCAP, want,
                                                  atol, rtol)
         line = (f"kernel flash_attention {label} {shape} causal={causal} window={window} "
@@ -1777,7 +1834,7 @@ def main() -> int:
         if cpu_mism:
             raise AssertionError(f"baseline {cfg.name}: card vs CPU differ in {cpu_mism} pixels")
 
-    # ---- 11-15. LM serving ------------------------------------------------
+    # ---- 11-16. LM serving ------------------------------------------------
     # The decoders through ServeEngine.  On a GQA layer every attention is a
     # flash kernel launch (decode: one query against the cache's valid
     # prefix, or on gemma2's local layers its last 4096 positions); an MLA
@@ -1789,13 +1846,16 @@ def main() -> int:
     # layers (phase 14: q-LoRA, 160 experts), then jamba-1.5-large-398b's
     # first LM_CUT_LAYERS layers (phase 15: three Mamba layers, plain
     # PyTorch as the reference's are plain JAX, and one GQA layer on the
-    # flash kernel; MoE of 16 experts on layers 1 and 3); each model is freed
+    # flash kernel; MoE of 16 experts on layers 1 and 3), then xlstm-350m at
+    # full width (phase 16: 21 mLSTM and 3 sLSTM layers, plain PyTorch as the
+    # reference's are plain JAX; no flash launch); each model is freed
     # before the next is made.
     from repro_torch.configs import get_config
     from repro_torch.models import attention as attention_mod
     from repro_torch.models import common as common_mod
     from repro_torch.models import mamba as mamba_mod
     from repro_torch.models import moe as moe_mod
+    from repro_torch.models import xlstm as xlstm_mod
     from repro_torch.models.config import LayerKind
     from repro_torch.models.model import LMModel, count_params
     from repro_torch.serving import ServeEngine, decode_step
@@ -1830,6 +1890,12 @@ def main() -> int:
                      f"dense MLP d_ff {cfg.d_ff} or MoE of {e.num_experts} experts of "
                      f"{e.d_expert}, top-{e.top_k}, on every other layer; "
                      f"{count_params(cfg, active_only=True)} active")
+        elif LayerKind.MLSTM in cfg.layer_kinds:
+            d_inner, dh = xlstm_mod.mlstm_dims(cfg)
+            shape = (f"mLSTM d_inner {d_inner}, {xlstm_mod.MLSTM_HEADS} heads of {dh}, conv "
+                     f"{xlstm_mod.CONV_K}, chunk {xlstm_mod.MLSTM_CHUNK}; sLSTM "
+                     f"{xlstm_mod.SLSTM_HEADS} heads of {xlstm_mod.slstm_dims(cfg)[1]}, FFN "
+                     f"{xlstm_mod.slstm_d_ff(cfg)}")
         elif cfg.mla is not None:
             m, e = cfg.mla, cfg.moe
             shape = (f"{cfg.num_heads} heads, MLA latent {m.kv_lora_rank} + rope "
@@ -2183,7 +2249,231 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-    # ---- 16. summary -------------------------------------------------------
+    # xlstm-350m's chunked mLSTM on the card (phase 16, continued): a float32
+    # copy of the model (init(0) in float32) over XLSTM_CHUNKED_S positions
+    # without a state against as many decode steps through the states.
+    cfg = dataclasses.replace(get_config("xlstm-350m"), dtype="float32")
+    model = LMModel(cfg).init(0)
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (LM_BATCH, XLSTM_CHUNKED_S)),
+                           device=dev)
+    atol, rtol = XLSTM_CHUNKED_TOL
+    with torch.inference_mode():
+        whole = model.apply(toks)[0]
+        caches = model.init_caches(LM_BATCH, 1, torch.float32)
+        worst = 0.0
+        for t in range(XLSTM_CHUNKED_S):
+            step, caches, _ = model.apply(toks[:, t:t + 1], caches=caches)
+            worst = max(worst, float((step[:, 0] - whole[:, t]).abs().max()))
+            if not torch.allclose(step[:, 0], whole[:, t], atol=atol, rtol=rtol):
+                raise AssertionError(f"xlstm-350m float32: step {t}'s logits outside atol "
+                                     f"{atol} + rtol {rtol} of the chunked forward's")
+    print(f"lm xlstm-350m float32 chunked forward over {XLSTM_CHUNKED_S} positions ("
+          f"{XLSTM_CHUNKED_S // xlstm_mod.MLSTM_CHUNK} chunks a mLSTM layer, batch {LM_BATCH}) "
+          f"against {XLSTM_CHUNKED_S} decode steps through the states: max |d logit| {worst:.3g} "
+          f"(logits up to {float(whole.abs().max()):.3g}) within atol {atol} + rtol {rtol} {card}")
+    del model, whole, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 17-18. the stub-frontend backbones ----------------------------------
+    # qwen2-vl-7b (phase 17: M-RoPE on a 16 x 16 patch grid, 28 query heads
+    # over 4 KV heads) and musicgen-large (phase 18: sinusoidal positions, 32
+    # heads of 64) at full width: the frontend's embeddings (seeded, unit
+    # normal as the token embeddings are) prefilled into the caches through
+    # LMModel.apply, then FRONTEND_NEW greedy decode steps of token ids
+    # through decode_step.  The reference's `serve lm` refuses these archs,
+    # so the model's own entry points drive them.
+    def frontend_phase(phase: int, arch: str):
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = LMModel(cfg).init(0)                    # on cuda:0
+        torch.cuda.synchronize()
+        grid = cfg.pos_embedding == "mrope"
+        s = QWEN_VL_GRID ** 2 if grid else MUSICGEN_FRAMES
+        max_len = s + FRONTEND_NEW + 1
+        print(f"lm {cfg.name} (phase {phase}): {count_params(cfg)} parameters, "
+              f"{cfg.num_layers} layers attn, d_model {cfg.d_model}, {cfg.num_heads} heads "
+              f"({cfg.num_kv_heads} KV) of {cfg.head_dim}, d_ff {cfg.d_ff} ({cfg.mlp_act}), "
+              f"{cfg.pos_embedding} positions, qkv bias {cfg.qkv_bias}, {cfg.frontend} inputs "
+              f"(B={FRONTEND_BATCH}, S={s}, d_model), vocab {cfg.vocab_size}, {cfg.dtype}, seeded "
+              f"weights made on the card in {time.perf_counter() - t0:.2f} s; "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated {card}")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        embeds = torch.randn((FRONTEND_BATCH, s, cfg.d_model), generator=gen,
+                             device=dev).to(model.dtype)
+        positions = None
+        if grid:                    # (t, h, w) = (0, row, column) of each patch
+            rows, cols = np.divmod(np.arange(s), QWEN_VL_GRID)
+            pos = np.stack([np.zeros_like(rows), rows, cols], -1)
+            positions = torch.as_tensor(pos, device=dev).expand(FRONTEND_BATCH, s, 3)
+
+        def prefill():
+            caches = model.init_caches(FRONTEND_BATCH, max_len)
+            with torch.inference_mode():
+                logits, caches, _ = model.apply(embeds, positions, caches)
+            return logits[:, -1].float(), caches
+
+        # the timed run: the prefill, then the decode steps through decode_step
+        prefill()
+        torch.cuda.synchronize()                        # warm-up: cuBLAS, the first launches
+        reset_counts()
+        t0 = time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        last, caches = prefill()
+        ev[1].record()
+        tok = torch.argmax(last, -1)
+        toks, step_events = [tok], []
+        for _ in range(FRONTEND_NEW):
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            e[0].record()
+            caches, tok = decode_step(model, caches, tok[:, None])
+            e[1].record()
+            step_events.append(e)
+            toks.append(tok)
+        toks = torch.stack(toks, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        steps = FRONTEND_NEW
+        expect = {k: cfg.num_layers * (1 + steps) if k == "flash_attention" else 0
+                  for k in launches}
+        if counts != expect:
+            raise AssertionError(f"lm {cfg.name}: launches {counts} for a prefill and {steps} "
+                                 f"decode steps, expected {expect}")
+        for k in launches:
+            launches[k] += counts[k]
+        if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()) or \
+                not bool(torch.isfinite(last).all()):
+            raise AssertionError(f"lm {cfg.name}: a token outside the vocabulary, or a "
+                                 f"non-finite logit")
+        step_ms = [a.elapsed_time(b) for a, b in step_events]
+        n_tok = FRONTEND_BATCH * (1 + steps)
+        print(f"lm {cfg.name}: prefill of {FRONTEND_BATCH} x {s} embeddings "
+              f"{ev[0].elapsed_time(ev[1]):.3f} ms (CUDA events), then {steps} decode steps "
+              f"(decode_step): {n_tok} tokens in {wall:.3f} s wall = {n_tok / wall:.2f} "
+              f"tokens/s; decode step median {median_of(step_ms):.3f} ms, min "
+              f"{min(step_ms):.3f}, max {max(step_ms):.3f}; flash launches "
+              f"{counts['flash_attention']} = {cfg.num_layers} layers x (1 prefill + {steps} "
+              f"steps); {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
+
+        # one decode step in the middle, profiled
+        def mid_step():
+            _, caches = prefill()
+            tk = toks[:, :1]
+            for _ in range(FRONTEND_NEW // 2):
+                caches, _ = decode_step(model, caches, tk)
+            torch.cuda.synchronize()
+            return lambda: decode_step(model, caches, tk)
+
+        rows, wall_us = trace(f"lm {cfg.name} decode step", mid_step())
+        busy = sum(r[0] for r in rows)
+        flash_us = sum(r[0] for r in rows if "flash_attention" in r[2])
+        gemm_us = sum(r[0] for r in rows if any(w in r[2].lower() for w in
+                                                ("nvjet", "gemm", "gemv", "xmma", "cutlass")))
+        print(f"lm profile {cfg.name} decode step (batch {FRONTEND_BATCH}, cache index "
+              f"{s + FRONTEND_NEW // 2}): device busy {busy:.1f} us of {wall_us:.1f} us wall "
+              f"under the profiler ({100 * busy / wall_us:.1f}%; "
+              f"{100 * busy / 1e3 / median_of(step_ms):.1f}% of the median unprofiled step), "
+              f"flash {flash_us:.1f} us ({100 * flash_us / max(busy, 1e-9):.1f}% of busy), "
+              f"matmuls {gemm_us:.1f} us ({100 * gemm_us / max(busy, 1e-9):.1f}%), "
+              f"{sum(r[1] for r in rows)} device operations "
+              f"({sum(r[1] for r in rows) / cfg.num_layers:.0f} a layer) {card}")
+
+        # The kernel against the plain-attention path: the prefill and every
+        # decode step's logits, both paths fed the kernel run's tokens (so
+        # their inputs are equal at every step); LM_LOGIT_ULPS as in phase 11.
+        def logged(forced):
+            last, caches = prefill()
+            rows = [last]
+            with torch.inference_mode():
+                for t in range(FRONTEND_NEW):
+                    logits, caches, _ = model.apply(forced[:, t:t + 1], caches=caches)
+                    rows.append(logits[:, -1].float())
+            return torch.stack(rows)                    # (1 + FRONTEND_NEW, B, V)
+
+        k_logits = logged(toks)
+        if not torch.equal(k_logits.argmax(-1).T, toks):
+            raise AssertionError(f"lm {cfg.name}: the logged kernel run's tokens differ from "
+                                 f"the timed run's")
+        attention_mod.flash_attention = ref.flash_attention_ref
+        try:
+            p_logits = logged(toks)
+        finally:
+            attention_mod.flash_attention = flash_kernel.flash_attention
+        top2 = p_logits.topk(2, dim=-1).values
+        top = float(top2[..., 1].max())
+        delta = LM_LOGIT_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+        d_max = float((k_logits - p_logits).abs().max())
+        clear = (top2[..., 0] - top2[..., 1]) > 2 * delta
+        held = int(clear.sum())
+        differ = int((k_logits.argmax(-1) != p_logits.argmax(-1))[clear].sum())
+        print(f"lm kernel vs plain attention {cfg.name} ({FRONTEND_BATCH} sequences, the "
+              f"prefill and {steps} steps on the kernel run's tokens): largest second-best "
+              f"logit {top:.4g}, delta = {LM_LOGIT_ULPS} bfloat16 steps of its binade = "
+              f"{delta:g}; max |d logit| {d_max:.6f}; {held} of {clear.numel()} tokens with "
+              f"plain top-2 margin > {2 * delta:g}, {differ} of them differ {card}")
+        if d_max > delta or differ:
+            raise AssertionError(f"lm {cfg.name}: the kernel path's logits differ from the "
+                                 f"plain path's by {d_max} > {delta}, or {differ} tokens "
+                                 f"above the margin differ")
+        del model, caches, k_logits, p_logits, embeds
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # The reduced model in float32 on the card against the port's CPU run:
+        # its embeddings (a 4 x 4 grid for qwen2-vl) without a cache, then the
+        # prefill and 8 decode steps of the CPU run's greedy tokens through
+        # float32 caches.
+        cfg32 = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+        on_cpu = LMModel(cfg32, device="cpu").init(0)
+        on_card = LMModel(cfg32)
+        on_card.load_state_dict(on_cpu.state_dict())
+        s32 = 16
+        x32 = torch.randn((FRONTEND_BATCH, s32, cfg32.d_model),
+                          generator=torch.Generator().manual_seed(1))
+        pos32 = None
+        if grid:
+            rows32, cols32 = np.divmod(np.arange(s32), 4)
+            pos32 = torch.as_tensor(np.stack([np.zeros_like(rows32), rows32, cols32], -1))
+            pos32 = pos32.expand(FRONTEND_BATCH, s32, 3)
+        atol, rtol = LM_F32_TOL
+        worst, equal = 0.0, True
+        with torch.inference_mode():
+            pairs = [(on_card.apply(x32, pos32)[0], on_cpu.apply(x32, pos32)[0])]
+            caches = {d: m.init_caches(FRONTEND_BATCH, s32 + 9, torch.float32)
+                      for d, m in (("card", on_card), ("cpu", on_cpu))}
+            lc, caches["card"], _ = on_card.apply(x32, pos32, caches["card"])
+            lh, caches["cpu"], _ = on_cpu.apply(x32, pos32, caches["cpu"])
+            pairs.append((lc, lh))
+            for _ in range(8):
+                tok = lh[:, -1].argmax(-1)[:, None]
+                equal &= torch.equal(lc[:, -1].argmax(-1).cpu(), tok[:, 0])
+                lc, caches["card"], _ = on_card.apply(tok, caches=caches["card"])
+                lh, caches["cpu"], _ = on_cpu.apply(tok, caches=caches["cpu"])
+                pairs.append((lc, lh))
+        for lc, lh in pairs:
+            lc = lc.cpu()
+            worst = max(worst, float((lc - lh).abs().max()))
+            if not torch.allclose(lc, lh, atol=atol, rtol=rtol):
+                raise AssertionError(f"lm float32 {cfg32.name}: card logits outside atol {atol} "
+                                     f"+ rtol {rtol} of the CPU's (max {worst})")
+        print(f"lm {cfg32.name} float32: card greedy tokens {'equal' if equal else 'DIFFER'} "
+              f"to the CPU run's; logits (embeddings without a cache, and the prefill and 8 "
+              f"decode steps through float32 caches) max |card - CPU| {worst:.3g} within atol "
+              f"{atol} + rtol {rtol} {card}")
+        if not equal:
+            raise AssertionError(f"lm float32 {cfg32.name}: card tokens differ from the CPU's")
+
+    for phase, arch in ((17, "qwen2-vl-7b"), (18, "musicgen-large")):
+        frontend_phase(phase, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- 19. summary -------------------------------------------------------
     shown = {"flash_attention": f"yi-9b decode bfloat16 Skv={FLASH_DECODE[-1][3]}"}
     entries = []
     for kname, _, _, source, replaces in kernels:

@@ -1,16 +1,13 @@
 """Configurations: the stereo settings (``elas_stereo``) and the LM
 architecture registry (counterpart of ``repro.configs``): ``--arch <id>`` ->
-``ModelConfig`` (full and reduced).
-
-The port runs the decoders made of attention layers: the dense GQA decoders,
-every layer ``LayerKind.ATTN`` or ``ATTN_LOCAL`` with a dense MLP (yi,
-qwen2.5, mistral-large; gemma2 with its sliding window, softcaps, post-block
-norms, GeGLU and tied embeddings), deepseek-v2 (``LayerKind.MLA`` layers,
-a dense first layer, then static-capacity MoE; the 236b with low-rank
-queries), and the jamba hybrid (``LayerKind.MAMBA`` layers with one GQA
-layer in eight, MoE on every other layer).  The reference's other
-architectures are not ported yet: asking for one raises ``KeyError`` that
-says so (ROADMAP.md, queue 1).
+``ModelConfig`` (full and reduced), for every architecture of the reference:
+the dense GQA decoders (yi, qwen2.5, mistral-large; gemma2 with its sliding
+window, softcaps, post-block norms, GeGLU and tied embeddings), deepseek-v2
+(MLA layers, a dense first layer, then static-capacity MoE; the 236b with
+low-rank queries), the jamba hybrid (Mamba layers with one GQA layer in
+eight, MoE on every other layer), xlstm-350m (seven mLSTM layers to one
+sLSTM), and the two stub-frontend backbones, qwen2-vl-7b (M-RoPE, qkv
+biases) and musicgen-large (sinusoidal positions, a plain GeLU MLP).
 """
 from __future__ import annotations
 
@@ -26,19 +23,17 @@ _ARCH_MODULES = {
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
+    "xlstm-350m": "repro_torch.configs.xlstm_350m",
+    "qwen2-vl-7b": "repro_torch.configs.qwen2_vl_7b",
+    "musicgen-large": "repro_torch.configs.musicgen_large",
 }
-# The reference's architectures whose layers the port cannot run yet.
-_NOT_PORTED = ("xlstm-350m", "qwen2-vl-7b", "musicgen-large")
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:
-    if arch in _NOT_PORTED:
-        raise KeyError(f"arch {arch!r} is not ported yet (ROADMAP.md, queue 1); "
-                       f"ported: {sorted(_ARCH_MODULES)}")
     if arch not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted((*_ARCH_MODULES, *_NOT_PORTED))}")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
     mod = importlib.import_module(_ARCH_MODULES[arch])
     return mod.REDUCED if reduced else mod.CONFIG
 

@@ -184,6 +184,24 @@ def xla_exp_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(out < _f32(_TINY), 0.0, out)
 
 
+def xla_softmax_f32(x: torch.Tensor, scale: float = 1.0,
+                    mask: torch.Tensor | None = None) -> torch.Tensor:
+    """``jax.nn.softmax(where(mask, x * scale, -1e30))`` over the last axis
+    of float32 ``x`` as XLA:CPU evaluates it: the max of the rounded
+    products; ``exp`` (XLA's) of ``x * scale - max``, which XLA contracts
+    into one FMA; divided by the sum (``torch.softmax`` uses another exp and
+    multiplies by the sum's reciprocal).  The sum runs in torch's order, not
+    XLA's, whose plan depends on the row's length (ROADMAP.md, queue 3)."""
+    s = x * scale
+    if mask is not None:
+        s = torch.where(mask, s, -1e30)
+    shifted = fma_f32(x, scale, -s.amax(-1, keepdim=True))
+    if mask is not None:
+        shifted = torch.where(mask, shifted, -1e30)
+    e = xla_exp_f32(shifted)
+    return e / e.sum(-1, keepdim=True)
+
+
 def xla_log_f32(x: torch.Tensor) -> torch.Tensor:
     """XLA:CPU's float32 ``log``, bit for bit, for positive normal ``x``
     (Cephes ``logf`` as Eigen's ``plog_float`` computes it)."""
@@ -826,6 +844,11 @@ def median3x3_rows_ref(top: torch.Tensor, mid: torch.Tensor, bot: torch.Tensor) 
 # --------------------------------------------------------------------------
 # Flash attention
 # --------------------------------------------------------------------------
+# Scores the plain attention holds at once (B x H x query rows x keys): its
+# float64 steps (``fma_f32``) take 8 bytes an element each.
+_FLASH_REF_SCORES = 2 ** 25
+
+
 def flash_attention_ref(
     q: torch.Tensor,          # (B, H, Sq, D)
     k: torch.Tensor,          # (B, H, Skv, D)
@@ -835,24 +858,38 @@ def flash_attention_ref(
     softcap: float = 0.0,
 ) -> torch.Tensor:
     """Plain softmax attention in float32, cast to q's dtype -- what the
-    flash kernel must match.  Each score is scaled by 1 / sqrt(D), then,
-    with ``softcap > 0``, capped to ``softcap * tanh(s / softcap)``, then
-    masked (the reference's order, ``repro/models/attention.py``).  With
-    ``causal`` a key position j is visible to query position i iff j <= i
-    (both from 0), and with ``window > 0`` also iff i - j < window; a masked
-    score is -1e30, not -inf."""
-    d = q.shape[-1]
-    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / (d ** 0.5)
-    if softcap > 0.0:
-        scores = softcap * torch.tanh(scores / softcap)
+    flash kernel must match.  Each score is multiplied by the float32 scale
+    1 / sqrt(D), then, with ``softcap > 0``, capped to ``softcap * tanh(s /
+    softcap)``, then masked (the reference's order,
+    ``repro/models/attention.py``), then normalised as ``jax.nn.softmax``
+    on XLA:CPU (:func:`xla_softmax_f32`; uncapped, the scale's multiply and
+    the max's subtraction are one FMA there).  With ``causal`` a key
+    position j is visible to query position i iff j <= i (both from 0), and
+    with ``window > 0`` also iff i - j < window; a masked score is -1e30,
+    not -inf.  Long inputs run a block of query rows at a time."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    rows = max(1, _FLASH_REF_SCORES // max(1, b * h * skv))
+    out = [_flash_rows(q[:, :, lo:lo + rows], k, v, lo, causal, window, softcap)
+           for lo in range(0, sq, rows)]
+    return out[0] if len(out) == 1 else torch.cat(out, 2)
+
+
+def _flash_rows(q, k, v, first: int, causal: bool, window: int, softcap: float):
+    """:func:`flash_attention_ref` for the query rows ``first`` onwards."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    raw = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    mask = None
     if causal:
-        sq, skv = q.shape[2], k.shape[2]
-        qpos = torch.arange(sq, device=q.device)[:, None]
-        kpos = torch.arange(skv, device=q.device)[None, :]
+        qpos = first + torch.arange(q.shape[2], device=q.device)[:, None]
+        kpos = torch.arange(k.shape[2], device=q.device)[None, :]
         mask = kpos <= qpos
         if window > 0:
             mask &= qpos - kpos < window
-        scores = torch.where(mask, scores, -1e30)
-    p = torch.softmax(scores, dim=-1)
+    if softcap > 0.0:
+        s = raw * scale
+        p = xla_softmax_f32(softcap * torch.tanh(s / softcap), mask=mask)
+    else:
+        p = xla_softmax_f32(raw, scale, mask)
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     return out.to(q.dtype)

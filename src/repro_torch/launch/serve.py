@@ -6,12 +6,14 @@ service (counterpart of ``repro/launch/serve.py``):
   PYTHONPATH=src python -m repro_torch.launch.serve lm --arch gemma2-27b [--device cuda]
   PYTHONPATH=src python -m repro_torch.launch.serve lm --arch deepseek-v2-lite-16b [--device cuda]
   PYTHONPATH=src python -m repro_torch.launch.serve lm --arch jamba-1.5-large-398b [--device cuda]
+  PYTHONPATH=src python -m repro_torch.launch.serve lm --arch xlstm-350m [--device cuda]
   PYTHONPATH=src python -m repro_torch.launch.serve stereo --frames 8 --batch 4 \\
       --height 120 --width 160 [--device cuda]
 
 Both run on the first CUDA card unless ``--device`` names another (``cpu``
 runs the plain PyTorch versions).  As in the reference, ``--reduced`` is
-always on for ``lm``.
+always on for ``lm``, and ``lm`` refuses the archs with a stub frontend
+(qwen2-vl-7b, musicgen-large), whose inputs are embeddings, not tokens.
 """
 from __future__ import annotations
 
@@ -30,6 +32,9 @@ from repro_torch.serving.stereo_service import StereoService
 
 def serve_lm(args) -> int:
     cfg = get_config(args.arch, reduced=args.reduced)
+    if cfg.frontend != "none":
+        raise SystemExit(f"{args.arch} has a stub frontend; LM serving demo "
+                         "uses token archs")
     model = LMModel(cfg, device=args.device).init(0)
     engine = ServeEngine(model, batch=args.batch,
                          max_len=args.prompt_len + args.max_new + 1)

@@ -1,6 +1,6 @@
-"""Attention: GQA with RoPE, gemma2's softcap and sliding window, and a KV
-cache (counterpart of ``repro/models/attention.py`` for ``LayerKind.ATTN``
-and ``LayerKind.ATTN_LOCAL``).
+"""Attention: GQA with RoPE or M-RoPE, gemma2's softcap and sliding window,
+and a KV cache (counterpart of ``repro/models/attention.py`` for
+``LayerKind.ATTN`` and ``LayerKind.ATTN_LOCAL``).
 
 Both attention computations go to the hand-written flash kernel
 (:func:`repro_torch.kernels.flash_attention.flash_attention`), which runs its
@@ -89,12 +89,18 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _apply_pos(q, k, positions, cfg: ModelConfig):
+    """RoPE (on the first stream of (B, S, 3) positions) or M-RoPE (which
+    needs them); sinusoidal positions are added at the embedding, and
+    ``none`` has none."""
     if cfg.pos_embedding == "rope":
-        q = common.apply_rope(q, positions, cfg.rope_theta)
-        k = common.apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.pos_embedding != "none":
-        raise NotImplementedError(f"{cfg.pos_embedding!r} positions are not ported yet "
-                                  f"(ROADMAP.md, queue 1)")
+        pos = positions if positions.dim() == 2 else positions[..., 0]
+        q = common.apply_rope(q, pos, cfg.rope_theta)
+        k = common.apply_rope(k, pos, cfg.rope_theta)
+    elif cfg.pos_embedding == "mrope":
+        if positions.dim() != 3:
+            raise ValueError(f"mrope needs (B, S, 3) positions, got {tuple(positions.shape)}")
+        q = common.apply_mrope(q, positions, cfg.rope_theta)
+        k = common.apply_mrope(k, positions, cfg.rope_theta)
     return q, k
 
 
@@ -138,14 +144,14 @@ def cache_insert(buf: torch.Tensor, new: torch.Tensor, idx: int) -> torch.Tensor
 def attention_block(
     params,
     x: torch.Tensor,              # (B, S, D)
-    positions: torch.Tensor,      # (B, S)
+    positions: torch.Tensor,      # (B, S) or (B, S, 3)
     cfg: ModelConfig,
     kind: LayerKind,
     cache: Optional[KVCache] = None,
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Self-attention with optional cache. Returns (out, updated_cache)."""
     if kind not in ATTN_KINDS:
-        raise NotImplementedError(f"{kind.value} is not GQA attention (ROADMAP.md, queue 1)")
+        raise NotImplementedError(f"{kind.value} is not GQA attention")
     window = cfg.sliding_window if kind == LayerKind.ATTN_LOCAL else 0
     cap = cfg.attn_softcap
     q, k, v = _project_qkv(params, x, cfg)

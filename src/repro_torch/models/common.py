@@ -2,9 +2,7 @@
 initialisers (counterpart of ``repro/models/common.py``).
 
 The reference's ``with_logical`` attaches a sharding hint that is a no-op on
-one device, so the port has none.  ``apply_mrope`` and
-``sinusoidal_embedding`` wait for qwen2-vl and musicgen (ROADMAP.md,
-queue 1).
+one device, so the port has none.
 """
 from __future__ import annotations
 
@@ -58,12 +56,51 @@ def apply_rope(
     """Rotary embedding on the two halves of the head (not interleaved
     pairs), in float32, in x's dtype."""
     freqs = rope_frequencies(x.shape[-1], theta, x.device)          # (D/2,)
-    angles = positions[..., None].float() * freqs                  # (B, S, D/2)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, D) rotated by angles (B, S, D/2), in float32, in x's dtype."""
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# M-RoPE's (temporal, height, width) sections, in proportions of D/2.
+MROPE_SECTIONS = (1, 1, 2)
+
+
+def apply_mrope(
+    x: torch.Tensor,              # (B, S, H, D)
+    positions: torch.Tensor,      # (B, S, 3) integer: (temporal, height, width)
+    theta: float,
+) -> torch.Tensor:
+    """qwen2-vl's multimodal RoPE: the D/2 frequencies are split into three
+    sections in the proportions ``MROPE_SECTIONS`` (the last takes the
+    remainder; 16 / 16 / 32 at D = 128), each rotated by its own position
+    stream, as :func:`apply_rope` rotates the two halves."""
+    half = x.shape[-1] // 2
+    total = sum(MROPE_SECTIONS)
+    sizes = [half * s // total for s in MROPE_SECTIONS]
+    sizes[-1] = half - sum(sizes[:-1])
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)          # (D/2,)
+    parts, start = [], 0
+    for i, size in enumerate(sizes):
+        parts.append(positions[..., i, None].float() * freqs[start:start + size])
+        start += size
+    return _rotate(x, torch.cat(parts, dim=-1))
+
+
+def sinusoidal_embedding(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """(B, S) -> (B, S, d_model) float32 transformer sinusoids (musicgen):
+    ``[sin, cos]`` of the positions times ``exp(-log(10000) i / half)``."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # --------------------------------------------------------------------------

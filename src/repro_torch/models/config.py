@@ -1,7 +1,5 @@
 """Model configuration covering every assigned architecture family (copy of
-``repro/models/config.py``; the port runs the decoders of ``ATTN``,
-``ATTN_LOCAL``, ``MLA`` and ``MAMBA`` layers with dense MLPs or MoE, and
-``LMModel`` raises ``NotImplementedError`` for the xLSTM layer kinds).
+``repro/models/config.py``).
 
 One frozen dataclass describes dense GQA transformers (llama/yi/qwen/
 mistral), gemma2 variants (local/global alternation, softcaps), MLA + MoE

@@ -12,9 +12,9 @@ JAX (no Pallas kernel):
 
 - decode (one token with a cache) is the reference's absorbed form: the
   query is projected into latent space through ``w_uk``, scored against the
-  cache's ``c_kv`` and ``k_rope`` directly (the two scores added in the
-  model's dtype, then scaled in float32), softmax in float32, the readout
-  taken in latent space and expanded through ``w_uv``;
+  cache's ``c_kv`` and ``k_rope`` directly (the two scores, each rounded to
+  the model's dtype, added and scaled in float32), softmax in float32, the
+  readout taken in latent space and expanded through ``w_uv``;
 - the forward without a cache and prefill expand ``c_kv`` to per-head keys
   and values and attend over the packed ``nope + rope`` head, causally, the
   queries at ``cache.index`` onwards over the whole cache (this is correct
@@ -106,7 +106,12 @@ def _decode(params, q_nope, q_rope, c_kv, k_rope, cfg: ModelConfig) -> torch.Ten
     s_lat = q_lat @ c_kv.transpose(1, 2)                                      # (B, H, n)
     s_rope = q_rope @ k_rope.transpose(1, 2)
     scale = 1.0 / math.sqrt(mla.nope_head_dim + mla.rope_head_dim)
-    p = torch.softmax((s_lat + s_rope).float() * scale, dim=-1)
+    # XLA adds the two bf16 scores in float32 and keeps the sum unrounded
+    # (excess precision: the add's bf16 round trip before the cast goes).
+    # Its softmax (kernels/ref.py::xla_softmax_f32) is not copied: ~200 small
+    # kernels a layer on the card, for last bits that the bf16 readout rounds
+    # away (tests/test_torch_bf16_decode_layers.py).
+    p = torch.softmax((s_lat.float() + s_rope.float()) * scale, dim=-1)
     o_lat = p.to(c_kv.dtype) @ c_kv                                           # (B, H, R)
     w_uv = params["w_uv"].view(r, h, mla.v_head_dim).transpose(0, 1)         # (H, R, dv)
     return (o_lat.transpose(0, 1) @ w_uv).transpose(0, 1)                     # (B, H, dv)

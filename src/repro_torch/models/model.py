@@ -1,7 +1,6 @@
-"""LMModel: the decoders made of attention and Mamba layers (counterpart of
-``repro/models/model.py`` for architectures made of ``LayerKind.ATTN``,
-``ATTN_LOCAL``, ``MLA`` and ``MAMBA`` layers: yi, qwen2.5, mistral-large,
-gemma2, deepseek-v2, jamba).
+"""LMModel: one decoder covering every architecture of the reference
+(counterpart of ``repro/models/model.py``: yi, qwen2.5, mistral-large, gemma2,
+deepseek-v2, jamba, xlstm, qwen2-vl, musicgen).
 
 An attention layer is RMSNorm -> attention (GQA, global or a sliding window
 on ``ATTN_LOCAL``; multi-head latent attention on ``MLA``) -> residual;
@@ -9,36 +8,58 @@ RMSNorm -> MLP, or static-capacity MoE where ``_layer_is_moe`` -> residual,
 with gemma2's post-block RMSNorms on the attention and MLP outputs when
 ``cfg.post_block_norm``.  A Mamba layer is RMSNorm -> the Mamba mixer ->
 residual, then, as the reference's, RMSNorm -> MoE where ``_layer_is_moe``,
-else a dense MLP when ``cfg.d_ff > 0`` -> residual.  The layers are a
-``ModuleList``, run one after another in ``cfg.layer_kinds``'s order (the
-reference scans over stacked units).  gemma2's other options: the embedding
-scaled by sqrt(d_model) (cast to the model's dtype first, as the reference),
-tied embeddings (logits against ``embed``, no ``lm_head``), and the attention
-and logit softcaps.  The weights are held in ``cfg.dtype``, cast once (the
+else a dense MLP when ``cfg.d_ff > 0`` -> residual.  An ``MLSTM`` or
+``SLSTM`` layer is RMSNorm -> the xLSTM block -> residual, with no MLP (the
+sLSTM block carries its own FFN).  The layers are a ``ModuleList``, run one
+after another in ``cfg.layer_kinds``'s order (the reference scans over
+stacked units).  gemma2's other options: the embedding scaled by
+sqrt(d_model) (cast to the model's dtype first, as the reference), tied
+embeddings (logits against ``embed``, no ``lm_head``), and the attention and
+logit softcaps.  The weights are held in ``cfg.dtype``, cast once (the
 reference keeps float32 and casts at every use, which gives the same
-values); the RMSNorm scales, the MoE router and the Mamba mixer's conv taps,
-biases, A and skip stay float32.  ``MLSTM``, ``SLSTM``, M-RoPE and the stub
-frontends raise ``NotImplementedError`` (ROADMAP.md, queue 1); ``loss``
-waits for the training slice.
+values); the RMSNorm scales, the MoE router, the Mamba mixer's conv taps,
+biases, A and skip, and the xLSTM blocks' conv taps, gate biases and
+recurrent gates stay float32.  The stub frontends (qwen2-vl's vision,
+musicgen's audio) take precomputed embeddings (B, S, d_model) in place of
+token ids; musicgen adds sinusoidal positions to its inputs and qwen2-vl's
+attention rotates by M-RoPE's three position streams, (B, S, 3) positions.
+``loss`` waits for the training slice.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, common, mamba, mla, moe as moe_mod
+from repro_torch.models import attention, common, mamba, mla, moe as moe_mod, xlstm
 from repro_torch.models.config import LayerKind, ModelConfig
 from repro_torch.models.mlp import init_mlp_params, mlp_block, mlp_shapes
 
-Caches = list  # one attention.KVCache, mla.MLACache or mamba.MambaState per layer
+# One attention.KVCache, mla.MLACache, mamba.MambaState, xlstm.MLSTMState or
+# xlstm.SLSTMState per layer.
+Caches = list
 
-# The layer kinds the port runs: GQA attention, multi-head latent attention
-# and the Mamba mixer.
-_PORTED_KINDS = (*attention.ATTN_KINDS, LayerKind.MLA, LayerKind.MAMBA)
+
+class _Mixer(NamedTuple):
+    """A recurrent mixer's module functions."""
+    shapes: Callable          # cfg -> {name: shape}
+    float32: tuple            # the names held in float32
+    init: Callable            # (gen, cfg, device) -> float32 weights
+    block: Callable           # (params, x, cfg, state) -> (out, new state)
+    state: Callable           # (cfg, batch, device) -> a fresh state
+
+
+_MIXERS = {
+    LayerKind.MAMBA: _Mixer(mamba.mamba_shapes, mamba.FLOAT32, mamba.init_mamba_params,
+                            mamba.mamba_block, mamba.init_mamba_state),
+    LayerKind.MLSTM: _Mixer(xlstm.mlstm_shapes, xlstm.FLOAT32, xlstm.init_mlstm_params,
+                            xlstm.mlstm_block, xlstm.init_mlstm_state),
+    LayerKind.SLSTM: _Mixer(xlstm.slstm_shapes, xlstm.FLOAT32, xlstm.init_slstm_params,
+                            xlstm.slstm_block, xlstm.init_slstm_state),
+}
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -60,18 +81,9 @@ def _layer_is_moe(cfg: ModelConfig, layer_idx: int) -> bool:
     return ((layer_idx - cfg.moe.first_dense) % cfg.moe.every) == cfg.moe.offset
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    for i, kind in enumerate(cfg.layer_kinds):
-        if kind not in _PORTED_KINDS:
-            raise NotImplementedError(f"{cfg.name}: layer {i} is {kind.value}; the port runs "
-                                      f"attn, attn_local, mla and mamba layers only "
-                                      f"(ROADMAP.md, queue 1)")
-    for what, unported in ((f"the {cfg.frontend} frontend", cfg.frontend != "none"),
-                           (f"{cfg.pos_embedding} positions",
-                            cfg.pos_embedding not in ("rope", "none"))):
-        if unported:
-            raise NotImplementedError(f"{cfg.name}: {what} are not ported yet "
-                                      f"(ROADMAP.md, queue 1)")
+def _starts_unit(cfg: ModelConfig, index: int) -> bool:
+    """Whether layer ``index`` is the first of one of the repeated units."""
+    return index >= len(cfg.prefix) and (index - len(cfg.prefix)) % len(cfg.pattern_unit) == 0
 
 
 class MoeWeights(nn.Module):
@@ -114,11 +126,20 @@ class AttnLayer(nn.Module):
             self.post_norm_mlp = _param((d,), torch.float32, device)
 
 
+def _mixer_params(cfg: ModelConfig, kind: LayerKind, dtype: torch.dtype,
+                  device) -> nn.ParameterDict:
+    """A recurrent mixer's weights: its module's ``FLOAT32`` tensors in
+    float32, the projections in the model's dtype."""
+    mixer = _MIXERS[kind]
+    return nn.ParameterDict({name: _param(shape, torch.float32 if name in mixer.float32
+                                          else dtype, device)
+                             for name, shape in mixer.shapes(cfg).items()})
+
+
 class MambaLayer(nn.Module):
-    """One ``LayerKind.MAMBA`` layer's weights: the mixer (its ``FLOAT32``
-    tensors in float32, the projections in the model's dtype), then a MoE
-    where ``_layer_is_moe`` (``is_moe``), else a dense MLP when ``cfg.d_ff >
-    0``, else none (the reference's ``_init_layer``)."""
+    """One ``LayerKind.MAMBA`` layer's weights: the mixer, then a MoE where
+    ``_layer_is_moe`` (``is_moe``), else a dense MLP when ``cfg.d_ff > 0``,
+    else none (the reference's ``_init_layer``)."""
 
     kind = LayerKind.MAMBA
 
@@ -127,13 +148,24 @@ class MambaLayer(nn.Module):
         d = cfg.d_model
         self.is_moe = _layer_is_moe(cfg, index)
         self.norm = _param((d,), torch.float32, device)
-        self.mixer = nn.ParameterDict({
-            name: _param(shape, torch.float32 if name in mamba.FLOAT32 else dtype, device)
-            for name, shape in mamba.mamba_shapes(cfg).items()})
+        self.mixer = _mixer_params(cfg, self.kind, dtype, device)
         if self.is_moe or cfg.d_ff > 0:
             self.norm_mlp = _param((d,), torch.float32, device)
             self.mlp = (MoeWeights(d, cfg.moe, dtype, device) if self.is_moe
                         else _params(mlp_shapes(d, cfg.d_ff, cfg.mlp_act), dtype, device))
+
+
+class XlstmLayer(nn.Module):
+    """One ``LayerKind.MLSTM`` or ``SLSTM`` layer's weights (``kind``): the
+    RMSNorm scale and the block's, no MLP (the reference's ``_init_layer``)."""
+
+    is_moe = False
+
+    def __init__(self, cfg: ModelConfig, kind: LayerKind, dtype: torch.dtype, device):
+        super().__init__()
+        self.kind = kind
+        self.norm = _param((cfg.d_model,), torch.float32, device)
+        self.mixer = _mixer_params(cfg, kind, dtype, device)
 
 
 def _add(x: torch.Tensor, h: torch.Tensor):
@@ -141,7 +173,9 @@ def _add(x: torch.Tensor, h: torch.Tensor):
     before that rounding).  The reference's jitted forward rounds the residual
     stream to the model's dtype, but the RMSNorm that reads a sum reads it
     unrounded: under excess precision XLA drops the round trip through
-    bfloat16 between the add and the norm's cast to float32."""
+    bfloat16 between the add and the norm's cast to float32.  (Across the
+    reference's scanned units the stream is the scan's carry, rounded:
+    ``LMModel.apply``.)"""
     s = x.float() + h
     return s.to(x.dtype), s
 
@@ -160,22 +194,22 @@ def _apply_layer(layer, x: torch.Tensor, x32: torch.Tensor, positions: torch.Ten
     value of its last sum (``_add``).  Returns (x, x32, new_cache, the MoE's
     aux terms or None)."""
     eps = cfg.norm_eps
-    h = common.rms_norm(x32, layer.norm if layer.kind == LayerKind.MAMBA else layer.norm_attn,
-                        eps, x.dtype)
-    if layer.kind == LayerKind.MAMBA:
-        h, new_cache = mamba.mamba_block(layer.mixer, h, cfg, cache)
+    mixer = layer.kind in _MIXERS
+    h = common.rms_norm(x32, layer.norm if mixer else layer.norm_attn, eps, x.dtype)
+    if mixer:
+        h, new_cache = _MIXERS[layer.kind].block(layer.mixer, h, cfg, cache)
     elif layer.kind == LayerKind.MLA:
         h, new_cache = mla.mla_block(layer.attn, h, positions, cfg, cache)
     else:
         h, new_cache = attention.attention_block(layer.attn, h, positions, cfg, layer.kind,
                                                  cache)
-    if cfg.post_block_norm:
+    if cfg.post_block_norm and not mixer:
         h = common.rms_norm(h, layer.post_norm_attn, eps)
     x, x32 = _add(x, h)
-    if not hasattr(layer, "mlp"):                 # a Mamba layer without d_ff
+    if not hasattr(layer, "mlp"):                 # an xLSTM layer, a Mamba layer without d_ff
         return x, x32, new_cache, None
     h, aux = _mlp(layer, x, x32, cfg)
-    if cfg.post_block_norm:
+    if cfg.post_block_norm and not mixer:
         h = common.rms_norm(h, layer.post_norm_mlp, eps)
     x, x32 = _add(x, h)
     return x, x32, new_cache, aux
@@ -200,7 +234,6 @@ class LMModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
@@ -211,6 +244,7 @@ class LMModel(nn.Module):
             self.lm_head = _param((d, vocab), self.dtype, self.device)
         self.layers = nn.ModuleList(
             MambaLayer(cfg, i, self.dtype, self.device) if kind == LayerKind.MAMBA
+            else XlstmLayer(cfg, kind, self.dtype, self.device) if kind in _MIXERS
             else AttnLayer(cfg, kind, i, self.dtype, self.device)
             for i, kind in enumerate(cfg.layer_kinds))
 
@@ -219,7 +253,8 @@ class LMModel(nn.Module):
     def init(self, seed: int) -> "LMModel":
         """Seeded weights with the reference's distributions (unit-normal
         embedding, fan-in truncated normals, zero norm scales and biases; the
-        Mamba mixer's as ``mamba.init_mamba_params``), drawn on the model's
+        recurrent mixers' as ``mamba.init_mamba_params``,
+        ``xlstm.init_mlstm_params`` and ``init_slstm_params``), drawn on the model's
         device from a ``torch.Generator``: other numbers than ``jax.random``
         gives for the same seed.  A MoE's routed tensors are drawn in float32
         one at a time, each copied into its parameter before the next, so
@@ -232,8 +267,8 @@ class LMModel(nn.Module):
             self.lm_head.copy_(common.dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                                  device=dev))
         for layer in self.layers:
-            if layer.kind == LayerKind.MAMBA:
-                _copy_into(layer.mixer, mamba.init_mamba_params(gen, cfg, dev))
+            if layer.kind in _MIXERS:
+                _copy_into(layer.mixer, _MIXERS[layer.kind].init(gen, cfg, dev))
             else:
                 _copy_into(layer.attn, (mla.init_mla_params if layer.kind == LayerKind.MLA
                                         else attention.init_attn_params)(gen, cfg, dev))
@@ -249,15 +284,28 @@ class LMModel(nn.Module):
         return self
 
     # ---------------- forward ----------------------------------------------
-    def _embed(self, inputs: torch.Tensor) -> torch.Tensor:
-        x = self.embed[inputs.long()]
-        if self.cfg.post_block_norm:       # gemma2 scales the embedding, in the model's dtype
-            x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.dtype)
+    def _embed(self, inputs: torch.Tensor,
+               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The inputs' embeddings in the model's dtype; with sinusoidal
+        positions (from 0 when none are given) added."""
+        cfg = self.cfg
+        if inputs.dim() == 3:              # a stub frontend's embeddings
+            x = inputs.to(self.dtype)
+        else:
+            x = self.embed[inputs.long()]
+            if cfg.post_block_norm:        # gemma2 scales the embedding, in the model's dtype
+                x = x * torch.tensor(cfg.d_model ** 0.5, dtype=self.dtype)
+        if cfg.pos_embedding == "sinusoidal":
+            if positions is None:
+                positions = torch.arange(inputs.shape[1], device=x.device).expand(inputs.shape[:2])
+            pos = positions if positions.dim() == 2 else positions[..., 0]
+            x = x + common.sinusoidal_embedding(pos, cfg.d_model).to(self.dtype)
         return x
 
     def _logits(self, x32: torch.Tensor) -> torch.Tensor:
-        """The logits from the float32 value of the residual stream's last
-        sum (``_add``)."""
+        """The logits from the float32 value of the residual stream after
+        the last layer (the reference's scan carries it rounded to the
+        model's dtype: ``apply``)."""
         cfg = self.cfg
         x = common.rms_norm(x32, self.final_norm, cfg.norm_eps, self.dtype)
         head = self.embed.T if cfg.tie_embeddings else self.lm_head
@@ -265,40 +313,53 @@ class LMModel(nn.Module):
 
     def apply(
         self,
-        inputs,                                        # (B, S) token ids
-        positions: Optional[torch.Tensor] = None,
+        inputs,                                        # (B, S) token ids or (B, S, D)
+        positions: Optional[torch.Tensor] = None,      # (B, S), or (B, S, 3) for M-RoPE
         caches: Optional[Caches] = None,
     ) -> tuple[torch.Tensor, Optional[Caches], dict]:
-        """Returns (logits (B, S, V) float32, new_caches, aux).  ``aux`` holds
-        the reference's MoE terms (``aux_loss``, ``z_loss``,
-        ``fraction_dropped``), each summed over the MoE layers: float32
-        scalars, or 0.0 without a MoE layer."""
+        """Returns (logits (B, S, V) float32, new_caches, aux).  ``inputs``
+        are token ids, or a stub frontend's embeddings (B, S, d_model).
+        Without ``positions``, position i of the inputs is the caches' index
+        plus i (on all three M-RoPE streams).  ``aux`` holds the reference's
+        MoE terms (``aux_loss``, ``z_loss``, ``fraction_dropped``), each
+        summed over the MoE layers: float32 scalars, or 0.0 without a MoE
+        layer."""
         cfg = self.cfg
         inputs = torch.as_tensor(inputs, device=self.device)
         b, s = inputs.shape[:2]
         if positions is None:
             start = 0 if caches is None else caches[0].index
             positions = (start + torch.arange(s, device=self.device)).expand(b, s)
-        x = self._embed(inputs)
+            if cfg.pos_embedding == "mrope":
+                positions = positions[..., None].expand(b, s, 3)
+        else:
+            positions = torch.as_tensor(positions, device=self.device)
+        x = self._embed(inputs, positions)
         x32 = x.float()
         new_caches = None if caches is None else []
         aux = {"aux_loss": 0.0, "z_loss": 0.0, "fraction_dropped": 0.0}
         for i, layer in enumerate(self.layers):
+            if _starts_unit(cfg, i):
+                # The reference scans over its units: the residual stream
+                # crosses from one to the next (and out to the final norm)
+                # as the scan's carry, rounded to the model's dtype.
+                x32 = x.float()
             x, x32, cache, layer_aux = _apply_layer(layer, x, x32, positions, cfg,
                                                     None if caches is None else caches[i])
             if caches is not None:
                 new_caches.append(cache)
             if layer_aux is not None:
                 aux = {k: aux[k] + layer_aux[k] for k in aux}
-        return self._logits(x32), new_caches, aux
+        return self._logits(x.float()), new_caches, aux
 
     # ---------------- caches -------------------------------------------------
     def init_caches(self, batch: int, max_len: int, dtype=torch.bfloat16) -> Caches:
         """A cache per layer: ``dtype`` (bfloat16 by default, as the
         reference's) for the attention layers' keys and values; a float32
-        ``MambaState`` for a Mamba layer, whatever ``dtype``."""
+        state (``MambaState``, ``MLSTMState``, ``SLSTMState``) for a
+        recurrent layer, whatever ``dtype``."""
         cfg, dev = self.cfg, self.device
-        return [mamba.init_mamba_state(cfg, batch, dev) if layer.kind == LayerKind.MAMBA
+        return [_MIXERS[layer.kind].state(cfg, batch, dev) if layer.kind in _MIXERS
                 else (mla.init_mla_cache if layer.kind == LayerKind.MLA
                       else attention.init_kv_cache)(cfg, batch, max_len, dtype, dev)
                 for layer in self.layers]
@@ -327,7 +388,7 @@ def params_from_reference(cfg: ModelConfig, tree: dict) -> dict[str, torch.Tenso
     model.init(key))``) as the port's float32 state dict, for
     ``load_state_dict`` (which casts to the model's dtype): ``units`` unstacked
     into one entry per layer, the projections reshaped to the port's
-    matrices (the Mamba mixer's tensors have the reference's shapes)."""
+    matrices (the recurrent mixers' tensors have the reference's shapes)."""
     shapes = {k: v.shape for k, v in LMModel(cfg, device="meta").state_dict().items()}
     flat = _flatten({k: v for k, v in tree.items() if k not in ("prefix", "units")}, "", {})
     layers = list(tree["prefix"]) + [_unit_slice(unit, u) for u in range(cfg.num_units)

@@ -22,16 +22,20 @@ at every MoE call (the reference's through ``jax.debug.callback``); each
 position keeps the bound until its sequence's first position whose experts
 or kept slots differ, and every such first flip must be a near tie on the
 reference's side (``torch_lm_cases.FLIP_MARGIN``).  Measured (x86-64, JAX
-0.9, torch 2.13; the port's silu rounding as ``jax.nn.silu`` and its norms
-reading unrounded residual sums, ``models/model.py::_add``):
-deepseek-v2-lite-16b-reduced flips in bfloat16 on these inputs, at
-reference top-k margins of 2.4e-4 to 1.04e-3: 29 of the forward's 64
-positions and 49 of the 64 decode positions stay held, within 0.031 and
-0.043; deepseek-v2-236b-reduced does not flip (all 128 held, within 0.047).
-(With ``F.silu`` and norms of rounded sums: 29 and 19 held, within 0.039.)  In
-float32 neither flips: the smallest top-k margins the reference saw were
-1.8e-4 (lite) and 2.1e-4 (236b), far above the ~1e-7 by which the two
-sides' router inputs differ.
+0.9, torch 2.13), with the port's roundings as the jitted reference's (the
+silu as ``jax.nn.silu``, norms reading unrounded residual sums within a
+unit and rounded ones across the reference's scanned units, MLA's two
+scores summed in float32; ``models/model.py``, ``mla.py``):
+neither reduced model flips in bfloat16 on these inputs.
+deepseek-v2-lite-16b-reduced holds all 64 forward positions (within 1.9e-6)
+and all 64 decode positions (within 0.0156; the logits equal the
+reference's bit for bit at 61 of the 64 (sequence, step) pairs);
+deepseek-v2-236b-reduced holds all 128 (within 0.027 and 0).  Before those
+repairs the lite model flipped:
+29 and 19 positions held (49 with the silu and the unrounded norms alone),
+at reference top-k margins of 2.4e-4 to 1.04e-3.  In float32 neither flips:
+the smallest top-k margins the reference saw were 1.8e-4 (lite) and 2.1e-4
+(236b), far above the ~1e-7 by which the two sides' router inputs differ.
 """
 import contextlib
 import dataclasses

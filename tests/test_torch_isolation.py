@@ -77,7 +77,10 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.models.model, repro_torch.models.attention, repro_torch.models.mlp, "
         "repro_torch.models.common, repro_torch.serving.engine, repro_torch.device, "
         "repro_torch.configs.gemma2_27b, repro_torch.models.mla, repro_torch.models.moe, "
-        "repro_torch.configs.deepseek_v2_lite_16b, repro_torch.configs.deepseek_v2_236b\n"
+        "repro_torch.configs.deepseek_v2_lite_16b, repro_torch.configs.deepseek_v2_236b, "
+        "repro_torch.models.mamba, repro_torch.configs.jamba_1_5_large_398b, "
+        "repro_torch.models.xlstm, repro_torch.configs.xlstm_350m, "
+        "repro_torch.configs.qwen2_vl_7b, repro_torch.configs.musicgen_large\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

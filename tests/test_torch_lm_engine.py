@@ -189,8 +189,19 @@ def test_serve_lm_launcher_on_cpu():
 
 
 def test_serve_lm_launcher_refuses_an_unported_arch():
-    with pytest.raises(SystemExit), contextlib.redirect_stderr(io.StringIO()):
-        serve.main(["lm", "--device", "cpu", "--arch", "xlstm-350m"])
+    """As the reference's launcher, ``serve lm`` refuses an arch with a stub
+    frontend: qwen2-vl-7b's inputs are embeddings, not tokens."""
+    with pytest.raises(SystemExit, match="stub frontend"):
+        serve.main(["lm", "--device", "cpu", "--arch", "qwen2-vl-7b"])
+
+
+def test_serve_lm_launcher_serves_xlstm():
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main(["lm", "--arch", "xlstm-350m", "--reduced", "--device", "cpu",
+                         "--requests", "2", "--max-new", "4"])
+    text = out.getvalue()
+    assert rc == 0 and "2 requests, 8 tokens" in text and "xlstm-350m-reduced" in text, text
 
 
 def test_float32_variant_runs_the_engine_on_the_float32_path():

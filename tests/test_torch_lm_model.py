@@ -5,8 +5,8 @@ block (no cache, and decode step by step against the reference's
 mistral-large-123b, all reduced, and tests/test_serve_engine.py's TINY, on
 weights carried across with ``params_from_reference``; the configs field for
 field and ``count_params`` full and reduced; gemma2's options each alone on
-TINY (gemma2 itself: tests/test_torch_gemma2.py); and what the port does not
-run.
+TINY (gemma2 itself: tests/test_torch_gemma2.py); the layer kinds and options
+of xlstm, qwen2-vl and musicgen each on TINY.
 
 Tolerances (reasons in tests/torch_lm_cases.py): float32 ``atol = rtol =
 1e-5`` and equal greedy tokens; bfloat16 logits within 0.0625 and tokens
@@ -22,6 +22,7 @@ import pytest
 import torch
 
 import torch_lm_cases as cases
+from repro.configs import ARCH_IDS as ref_arch_ids
 from repro.configs import get_config as ref_get_config
 from repro.models import attention as ref_attention
 from repro.models import common as ref_common
@@ -316,13 +317,16 @@ def test_yi_9b_full_width_count():
 
 def test_registry_covers_the_ported_archs_only():
     # gemma2: tests/test_torch_gemma2.py; deepseek-v2: tests/test_torch_deepseek.py;
-    # jamba: tests/test_torch_jamba.py
-    ported = (*cases.ARCHS, "gemma2-27b", *cases.DEEPSEEK, "jamba-1.5-large-398b")
+    # jamba: tests/test_torch_jamba.py; xlstm: tests/test_torch_xlstm.py; qwen2-vl and
+    # musicgen: tests/test_torch_frontends.py
+    ported = (*cases.ARCHS, "gemma2-27b", *cases.DEEPSEEK, "jamba-1.5-large-398b",
+              "xlstm-350m", "qwen2-vl-7b", "musicgen-large")
     assert port_configs.ARCH_IDS == ported
-    assert set(port_configs.all_configs(reduced=True)) == set(ported)
-    for arch in ("xlstm-350m", "qwen2-vl-7b", "musicgen-large"):
-        with pytest.raises(KeyError, match="not ported yet"):
-            port_configs.get_config(arch)
+    assert set(ported) == set(ref_arch_ids)
+    for reduced in (False, True):
+        configs = port_configs.all_configs(reduced)
+        assert set(configs) == set(ported)
+        assert all(cfg.name == ref_get_config(arch, reduced).name for arch, cfg in configs.items())
     with pytest.raises(KeyError, match="unknown arch"):
         port_configs.get_config("llama-7b")
 
@@ -369,16 +373,45 @@ def test_gemma2_option_alone_matches_reference(change):
         np.testing.assert_allclose(got, np.asarray(want), **tol)
 
 
-@pytest.mark.parametrize("change", [
-    dict(pattern_unit=(LayerKind.MLSTM,)),
-    dict(pattern_unit=(LayerKind.ATTN, LayerKind.SLSTM)),
-    dict(pattern_unit=(LayerKind.MLSTM, LayerKind.SLSTM)),
-    dict(pos_embedding="mrope"),
-    dict(frontend="audio_stub"),
-], ids=["mlstm", "slstm", "xlstm", "mrope", "frontend"])
+# The layer kinds and options of xlstm-350m, qwen2-vl-7b and musicgen-large,
+# each on TINY (a full sequence of 12 and 12 decode steps; xLSTM chunks of
+# 12, and 4 heads of 32: the mLSTM's d_inner 128).
+OTHER_OPTIONS = {
+    "mlstm": dict(pattern_unit=(LayerKind.MLSTM,)),
+    "slstm": dict(pattern_unit=(LayerKind.ATTN, LayerKind.SLSTM)),
+    "xlstm": dict(pattern_unit=(LayerKind.MLSTM, LayerKind.SLSTM)),
+    "mrope": dict(pos_embedding="mrope"),
+    "frontend": dict(frontend="audio_stub", pos_embedding="sinusoidal", mlp_act="gelu_mlp"),
+}
+
+
+@pytest.mark.parametrize("change", OTHER_OPTIONS.values(), ids=OTHER_OPTIONS.keys())
 def test_unported_layers_raise(change):
-    cfg = dataclasses.replace(cases.TINY, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
-        LMModel(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        count_params(cfg)
+    """The layer kinds and options that raised before the port ran them
+    (the test keeps its name) now match the reference: float32, without a
+    cache and token by token through float32 caches (and states), as
+    ``test_gemma2_option_alone_matches_reference``; the stub frontend's
+    inputs are (B, S, d_model) embeddings for the forward and token ids for
+    the decode steps."""
+    ref_cfg, cfg = (dataclasses.replace(c, dtype="float32", **change)
+                    for c in (cases.REF_TINY, cases.TINY))
+    ref = cases.RefModel(ref_cfg)
+    tree = jax.tree.map(np.asarray, ref.init(jax.random.PRNGKey(14)))
+    port = LMModel(cfg, device="cpu")
+    port.load_state_dict(params_from_reference(cfg, tree))
+    assert count_params(cfg) == ref_count_params(ref_cfg)
+    params = jax.tree.map(jnp.asarray, tree)
+    ref_apply = jax.jit(lambda p, t, c: ref.apply(p, t, caches=c)[:2])
+    toks = cases.tokens(cfg.vocab_size, (2, 12), seed=14)
+    inputs = (np.random.default_rng(14).standard_normal((2, 12, cfg.d_model)).astype(np.float32)
+              if cfg.frontend != "none" else toks)
+    want = np.asarray(ref_apply(params, jnp.asarray(inputs), None)[0])
+    got, _ = cases.port_logits(port, inputs)
+    np.testing.assert_allclose(got, want, **cases.F32_TOL)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    ref_caches, caches = ref.init_caches(2, 12, jnp.float32), port.init_caches(2, 12, torch.float32)
+    for t in range(12):
+        want, ref_caches = ref_apply(params, jnp.asarray(toks[:, t:t + 1]), ref_caches)
+        got, caches = cases.port_logits(port, toks[:, t:t + 1], caches)
+        np.testing.assert_allclose(got, np.asarray(want), **cases.F32_TOL)
+    assert all(c.index == 12 for c in caches)
