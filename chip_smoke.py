@@ -5,7 +5,8 @@
 
 Phases (any failure exits nonzero):
  1. device: card name and count, ``nvidia-smi`` name and power limit, versions;
- 2. build: compile every ``src/repro_torch/kernels/csrc/*.cu`` in parallel;
+ 2. build: compile every ``src/repro_torch/kernels/csrc/*.cu`` in parallel
+    (the flash forward and its backward are two of them);
     the flash library's SASS must hold HGMMA (bf16 on the tensor cores);
  3. kernels: each CUDA kernel against its plain PyTorch version on the card,
     at the shapes the frame path and the wave give it (elas-kitti,
@@ -115,7 +116,8 @@ Phases (any failure exits nonzero):
     the kernel and with the attention's kernel call swapped for the plain
     version (in this script only): with equal inputs on both paths the
     logits within LM_LOGIT_ULPS bfloat16 steps of the binade of the largest
-    second-best logit (delta), and every token whose plain top-2 logit margin
+    second-best logit (delta; a tied head's logit of the input token, delta
+    plus one step of its own binade), and every token whose plain top-2 logit margin
     exceeds 2 * delta equal; the reduced model in float32 on the card against the port's CPU
     run (equal tokens; logits within LM_F32_TOL over LM_F32_STEPS tokens
     without a cache and through float32 caches); ``repro_torch.launch.serve
@@ -169,7 +171,27 @@ Phases (any failure exits nonzero):
 18. the same for musicgen-large (48 layers, 32 heads of 64, sinusoidal
     positions, a plain GeLU MLP; 2,424,506,368 parameters, 4.52 GiB) on 64
     frame embeddings and caches of 81 positions;
-19. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
+19. training: (a) the flash backward kernel (``csrc/flash_attention_bwd.cu``
+    through the kernel's autograd Function) against autograd through the
+    plain version at FLASH_BWD_CASES (causal, full, gemma2's window and
+    softcap, D = 64, a ragged S; float32 and bfloat16), 0 gradient entries
+    outside FLASH_BWD_TOL_F32 / FLASH_BWD_ULPS allowed; (b) the backward at
+    the training shape FLASH_BWD_TRAIN, held to the plain version and timed
+    from its three kernels' profiler rows beside its bound, the plain
+    backward's device time and SDPA's backward; (c) yi-9b-reduced and
+    gemma2-27b-reduced in float32: the loss and every gradient on the card
+    (flash forward and backward kernels) against the port's CPU run, and
+    every wq / wk / wv gradient non-zero; (d) yi-9b at full widths cut to
+    its first TRAIN_LAYERS = 8 layers (1.91e9 parameters, bf16, float32
+    AdamW moments) through ``Trainer``: a global batch of 4 x 4096 in 2
+    microbatches, 6 steps, a checkpoint every 2, one injected
+    ``SimulatedNodeFailure`` before step 3's batch whose replayed step must
+    give the same loss bit for bit; step times, tokens/s, memory, flash
+    forward and backward launches (16 a step each) and one profiled step;
+    then ``python -m repro_torch.launch.train`` once on the card;
+20. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
+
+Each phase prints how far into the run it starts.
 
 Every time is printed with the card's name and power limit.  Each profiled
 frame or wave also leaves its device-side rows, by time, in
@@ -357,7 +379,12 @@ LM_MAX_LEN = LM_PROMPT_LEN + LM_NEW + 1
 # times the input token's embedding, so that token's own tied logit is
 # ~d_model = 4608, 13 times any other, whose 4 steps (128) would bound
 # nothing; its other pre-cap logits (unit-normal rows against the normed
-# state, std ~68) reach ~350, in [256, 512): steps of 2, delta 8.  A
+# state, std ~68) reach ~350, in [256, 512): steps of 2, delta 8.  That one
+# self-logit of a tied head (the step's input token's) is rounded to bfloat16
+# in steps of its own binade (32 at 4608), so a difference within delta in
+# the float32 sum before that rounding comes out as 0 or one whole step: it
+# is held to delta plus one step of its own binade, and its difference is
+# printed; every other logit is held to delta.  A
 # softcap moves no logit further (its slope is at most 1), so the greedy
 # token can differ only where the plain run's top two (capped) logits are
 # within 2 * delta: while a request's inputs are equal on both paths, every
@@ -383,6 +410,64 @@ LM_F32_TOL = (1e-5, 1e-5)
 # its k-th and (k+1)-th router probabilities within this (the CPU tests'
 # FLIP_MARGIN, tests/torch_lm_cases.py).
 FLIP_MARGIN = 0.01
+# Training (phase 19).  (a) The flash backward (through the kernel's autograd
+# Function) against autograd through the plain version on the same inputs
+# and output gradient: (B, H, Sq, Skv, D, causal, window, softcap, q scale),
+# each in float32 and bfloat16 -- causal and full at (2, 8, 1024, 1024, 128),
+# gemma2's options (window 256 with the softcap, and the softcap alone, q
+# scaled as phase 3's so that the cap bites), D = 64, a ragged S = 1000.
+FLASH_BWD_CASES = [
+    (2, 8, 1024, 1024, 128, True, 0, 0.0, 1.0),
+    (2, 8, 1024, 1024, 128, False, 0, 0.0, 1.0),
+    (2, 8, 1024, 1024, 128, True, 256, GEMMA2_SOFTCAP, FLASH_CAP_Q_SCALE),
+    (2, 8, 1024, 1024, 128, True, 0, GEMMA2_SOFTCAP, FLASH_CAP_Q_SCALE),
+    (2, 8, 1024, 1024, 64, True, 0, 0.0, 1.0),
+    (2, 8, 1000, 1000, 128, True, 0, 0.0, 1.0),
+]
+# The tolerance of each gradient (dq, dk, dv), elementwise: float32 within
+# FLASH_BWD_TOL_F32 of the gradient's largest magnitude (float32 sums of up
+# to 1024 products in another order: up to 2.3e-6 of it seen at 300
+# positions); bfloat16 within FLASH_BWD_ULPS bfloat16 steps of that
+# magnitude's binade (both sides round float32 sums to bfloat16 once, and the
+# kernel's Delta = rowsum(dO * O) reads the bfloat16 output where autograd's
+# softmax gradient sums P dP in float32: up to 1.8 steps seen).
+FLASH_BWD_TOL_F32 = 2.0 ** -16
+FLASH_BWD_ULPS = 4
+# (b) The backward at the full-width training phase's shape: a microbatch of
+# 2 sequences of 4096, yi-9b's 32 query heads of 128 after the GQA
+# expansion, bfloat16, causal.  Its bound counts the five products (S, dP,
+# dV, dK, dQ) as FLASH_BWD_FACTOR times the forward's 4 D flops a visible
+# pair, at the tensor cores' rate; its bytes read q, k, v, the output, its
+# gradient and the log-sum-exp once and write dq, dk, dv once.
+FLASH_BWD_TRAIN = (2, 32, 4096, 4096, 128)
+FLASH_BWD_FACTOR = 2.5
+# (c) The reduced models' loss and gradients in float32 on the card (flash
+# forward and backward kernels) against the port's CPU run of the same
+# weights and batch: the loss within rtol 1e-5, each gradient within
+# TRAIN_GRAD_TOL of its largest magnitude (the CPU tests hold the port to
+# jax.value_and_grad within 1e-5 of it; the card's float32 flash kernels and
+# cuBLAS sum in other orders again).
+TRAIN_GRAD_ARCHS = ("yi-9b", "gemma2-27b")
+TRAIN_GRAD_TOL = 1e-4
+# (d) yi-9b at full widths (d_model 4096, 32 heads over 4 KV heads, d_ff
+# 11008, vocab 64000) cut to its first TRAIN_LAYERS of 48 layers: the whole
+# model's bf16 weights and gradients, float32 m, v and accumulator (16 bytes
+# a parameter, ~145 GB) exceed the card; the cut's 1.94e9 parameters take ~31
+# GB.  bf16 weights, the reference's default AdamW (float32 moments), a
+# global batch of TRAIN_BATCH TokenPipeline sequences of train_4k's 4096 in
+# TRAIN_MICROBATCHES microbatches, TRAIN_STEPS Trainer steps, a checkpoint
+# every TRAIN_CKPT_EVERY (the latest kept), and one SimulatedNodeFailure
+# before step TRAIN_FAIL_AT's batch: the run restores that step's last
+# checkpoint and runs the step from TRAIN_FAIL_AT - 1 again, whose loss must
+# repeat bit for bit.
+TRAIN_ARCH = "yi-9b"
+TRAIN_LAYERS = 8
+TRAIN_BATCH = 4
+TRAIN_SEQ = 4096
+TRAIN_MICROBATCHES = 2
+TRAIN_STEPS = 6
+TRAIN_CKPT_EVERY = 2
+TRAIN_FAIL_AT = 3
 
 
 def main() -> int:
@@ -392,6 +477,11 @@ def main() -> int:
     os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(ROOT / "build" / "inductor"))
     os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     import torch
+
+    t_start = time.perf_counter()
+
+    def phase_starts(n) -> None:
+        print(f"phase {n} starts {time.perf_counter() - t_start:.1f} s into the run", flush=True)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -441,6 +531,11 @@ def main() -> int:
         ("flash_attention", flash_kernel, "launches",
          "src/repro_torch/kernels/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention.py:108"),
+        # No Pallas kernel has a backward: the reference trains attention
+        # through XLA's autodiff of blockwise_attention.
+        ("flash_attention_bwd", flash_kernel, "backward_launches",
+         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "src/repro/models/attention.py:172"),
     ]
 
     def reset_counts():
@@ -610,6 +705,7 @@ def main() -> int:
                                         bound_ms=b_ms, bound_by=b_by, library_ms=library)
 
     # ---- 3. kernels against their plain versions ----------------------------
+    phase_starts(3)
     # The dense energy's exp and log: the card's sequence against the plain
     # helpers over the energy's input ranges (x <= 0 for exp; every float32
     # in [3, 4) = [gamma, gamma + 1) for log).
@@ -1426,9 +1522,11 @@ def main() -> int:
             raise AssertionError(f"{label}: disparities outside [disp_min, disp_max]")
 
     # ---- 4. single frame -------------------------------------------------
+    phase_starts(4)
     launches = {k[0]: 0 for k in kernels}
     per_frame = {"support_match": 1, "dense_match_stream": 1, "dense_match_windowed": 0,
-                 "sobel": 1, "median3x3": 1, "dense_match_warm": 0, "flash_attention": 0}
+                 "sobel": 1, "median3x3": 1, "dense_match_warm": 0, "flash_attention": 0,
+                 "flash_attention_bwd": 0}
     frames = 6
     single, single_bad = {}, {}
     for cfg, d_max in ((KITTI, 100.0), (TSUKUBA, 48.0)):
@@ -1483,6 +1581,7 @@ def main() -> int:
         trace(f"{cfg.name} frame", lambda: pipeline.ielas_disparity(il, ir, p))
 
     # ---- 5. wave ---------------------------------------------------------
+    phase_starts(5)
     routes = (("stream", None, "dense_match_stream"),
               ("take", TileSpec(gather="take"), "dense_match_windowed"))
     waves = 4
@@ -1549,6 +1648,7 @@ def main() -> int:
             trace(f"{cfg.name} {route} wave of {WAVE}", run_wave)
 
     # ---- 6. golden frame across devices -------------------------------------
+    phase_starts(6)
     il, ir, _ = synthetic_stereo_pair(height=57, width=83, d_max=24, seed=11)
     on_card = pipeline.ielas_disparity(il, ir, SYNTH.params).cpu().numpy()
     on_cpu = pipeline.ielas_disparity(il, ir, SYNTH.params, device="cpu").numpy()
@@ -1564,6 +1664,7 @@ def main() -> int:
         raise AssertionError(f"card output differs from the CPU output in {mism} pixels")
 
     # ---- 7. attention ------------------------------------------------------
+    phase_starts(7)
     reset_counts()
     for (dtype, causal), want in flash_out.items():
         q, k, v = flash_inputs(dtype)
@@ -1586,6 +1687,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 8. service --------------------------------------------------------
+    phase_starts(8)
     from repro_torch.launch import serve as serve_launch
     from repro_torch.serving import FaultPlan, FaultSpec, StereoService
 
@@ -1681,6 +1783,7 @@ def main() -> int:
         launches[k] += counts[k]
 
     # ---- 9. warm video -----------------------------------------------------
+    phase_starts(9)
     cfg, d_max = KITTI, 100.0
     p = cfg.params
     seq = synthetic_stereo_sequence(VIDEO_FRAMES, height=cfg.height, width=cfg.width,
@@ -1775,6 +1878,7 @@ def main() -> int:
           f"wall, median of 5 {card}")
 
     # ---- 10. hybrid baseline -------------------------------------------------
+    phase_starts(10)
     # Original ELAS with a host-side Delaunay prior (the paper's Table IV
     # comparison) on phase 4's pairs: the support stage on the card, the
     # grid to the host and two scipy Delaunay priors, the dense half (stream
@@ -1862,6 +1966,7 @@ def main() -> int:
     from repro_torch.serving import engine as engine_mod
 
     def serve_lm_phase(phase: int, arch: str, cut: int = 0):
+        phase_starts(phase)
         cfg = get_config(arch)
         how = "no cut"
         if cut:
@@ -2132,6 +2237,23 @@ def main() -> int:
             held = low = after = after_equal = 0
             first_delta = float((k_pre[0] - p_pre[0]).abs().max())
             max_delta = 0.0
+            # each request's tokens in: step t reads seqs[i][t]
+            seqs = [[int(x) for x in prompt] + k_toks[i] for i, prompt in enumerate(waves[0])]
+            selfs = []          # (|d|, bound, |plain|) of a tied head's self-logit, each step
+
+            def held_step(t, i) -> float:
+                """The largest |kernel - plain| logit difference of step t,
+                request i; with a tied head, all but the input token's own
+                logit, whose difference and bound go to ``selfs``."""
+                d = (k_pre[t, i] - p_pre[t, i]).abs()
+                if cfg.tie_embeddings:
+                    tok = seqs[i][t]
+                    mag = max(abs(float(p_pre[t, i, tok])), top)
+                    selfs.append((float(d[tok]), delta + 2.0 ** (math.floor(math.log2(mag)) - 7),
+                                  mag))
+                    d[tok] = 0.0
+                return float(d.max())
+
             top2 = p_logits.topk(2, dim=-1).values
             margins = (top2[..., 0] - top2[..., 1]).cpu()
             # each request's first step whose experts differ on the two paths,
@@ -2151,8 +2273,7 @@ def main() -> int:
                 j, diverged = 0, False
                 while j < LM_NEW and start + j < flip_step:     # inputs and experts equal
                     margin = float(margins[start + j, i])
-                    max_delta = max(max_delta, float((k_pre[start + j, i]
-                                                      - p_pre[start + j, i]).abs().max()))
+                    max_delta = max(max_delta, held_step(start + j, i))
                     if k_toks[i][j] != p_toks[i][j]:
                         if margin > 2 * delta:
                             raise AssertionError(
@@ -2172,7 +2293,7 @@ def main() -> int:
                             f"{flip_step} with equal inputs, where the plain path's router "
                             f"margin is {flip_margin} >= {FLIP_MARGIN}")
                 for t in range(min(start, flip_step)):  # the prompt's steps
-                    max_delta = max(max_delta, float((k_pre[t, i] - p_pre[t, i]).abs().max()))
+                    max_delta = max(max_delta, held_step(t, i))
                 after += LM_NEW - j
                 after_equal += sum(a == b for a, b in zip(k_toks[i][j:], p_toks[i][j:]))
             what = "pre-cap logit" if capped else "logit"
@@ -2180,7 +2301,13 @@ def main() -> int:
                   f"{LM_NEW} tokens): largest second-best {what} {top:.4g}, so delta = "
                   f"{LM_LOGIT_ULPS} bfloat16 steps of its binade = {delta:g}; first step max "
                   f"|d {what}| {first_delta:.6f}, max over steps with equal inputs "
-                  f"{max_delta:.6f}; while the inputs are equal, {held} tokens with plain top-2 "
+                  f"{max_delta:.6f}"
+                  + (f" (the input token's own tied {what} apart: |plain| up to "
+                     f"{max(m for _, _, m in selfs):.6g}, it differs at {sum(a > 0 for a, _, _ in selfs)} "
+                     f"of {len(selfs)} steps, by at most {max(a for a, _, _ in selfs):g}, "
+                     f"bound delta + one step of its binade = {max(b for _, b, _ in selfs):g})"
+                     if selfs else "")
+                  + f"; while the inputs are equal, {held} tokens with plain top-2 "
                   f"margin > {2 * delta:g} (gated) and {low} under it all equal; from each "
                   f"request's first differing token on, {after_equal} of {after} equal (not "
                   f"gated)"
@@ -2190,6 +2317,11 @@ def main() -> int:
             if max_delta > delta:
                 raise AssertionError(f"lm {cfg.name}: the kernel path's {what}s differ from the "
                                      f"plain path's by {max_delta} > {delta} with equal inputs")
+            over = [(a, b) for a, b, _ in selfs if a > b]
+            if over:
+                raise AssertionError(f"lm {cfg.name}: the input token's own tied {what} differs "
+                                     f"from the plain path's beyond its bound with equal inputs "
+                                     f"(|d|, bound): {over[:5]}")
             del k_logits, p_logits, k_pre, p_pre
         del model, engine
         gc.collect()
@@ -2285,6 +2417,7 @@ def main() -> int:
     # through decode_step.  The reference's `serve lm` refuses these archs,
     # so the model's own entry points drive them.
     def frontend_phase(phase: int, arch: str):
+        phase_starts(phase)
         cfg = get_config(arch)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2473,8 +2606,306 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-    # ---- 19. summary -------------------------------------------------------
-    shown = {"flash_attention": f"yi-9b decode bfloat16 Skv={FLASH_DECODE[-1][3]}"}
+    # ---- 19. training -----------------------------------------------------
+    phase_starts(19)
+    import shutil
+
+    from repro_torch.data.tokens import pipeline_for
+    from repro_torch.launch import train as train_launch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedule import ScheduleConfig
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    from repro_torch.runtime.train_loop import (
+        SimulatedNodeFailure, TrainConfig, Trainer, value_and_grad,
+    )
+
+    def bwd_tol(want, dtype) -> float:
+        top = float(want.abs().max())
+        if dtype == torch.float32:
+            return FLASH_BWD_TOL_F32 * top
+        return FLASH_BWD_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+    def bwd_inputs(shape, dtype, q_scale, seed):
+        b, h, sq, skv, d = shape
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        q = torch.randn((b, h, sq, d), generator=gen, device=dev) * q_scale
+        k, v = (torch.randn((b, h, skv, d), generator=gen, device=dev) for _ in range(2))
+        g = torch.randn((b, h, sq, d), generator=gen, device=dev)
+        return [t.to(dtype) for t in (q, k, v, g)]
+
+    def grads_of(fn, q, k, v, g, **opts):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        fn(*leaves, **opts).backward(g)
+        return [t.grad for t in leaves]
+
+    def outside_tol(got, want, dtype) -> tuple[int, float]:
+        """(outputs outside the backward's tolerance, the largest error over
+        its tolerance) over the three gradients."""
+        outside, worst = 0, 0.0
+        for gk, gp in zip(got, want):
+            gp = gp.float()
+            tol = bwd_tol(gp, dtype)
+            err = (gk.float() - gp).abs()
+            outside += int((err > tol).sum())
+            worst = max(worst, float(err.max()) / tol)
+        return outside, worst
+
+    # (a) the backward kernel against autograd through the plain version
+    lines = []
+    for b, h, sq, skv, d, causal, window, cap, q_scale in FLASH_BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, g = bwd_inputs((b, h, sq, skv, d), dtype, q_scale, seed=sq + d)
+            opts = dict(causal=causal, window=window, softcap=cap)
+            before = flash_kernel.backward_launches
+            got = grads_of(flash_kernel.flash_attention, q, k, v, g, **opts)
+            torch.cuda.synchronize()
+            if flash_kernel.backward_launches != before + 1:
+                raise AssertionError("flash backward: the kernel path did not launch the "
+                                     "backward kernel once")
+            want = grads_of(ref.flash_attention_ref, q, k, v, g, **opts)
+            outside, worst = outside_tol(got, want, dtype)
+            what = (f"({b}, {h}, {sq}, {skv}, {d}) {str(dtype)[6:]} "
+                    f"{'causal' if causal else 'full'}"
+                    + (f" window {window}" if window else "")
+                    + (f" softcap {cap:g}" if cap else ""))
+            lines.append(f"{what}: {outside} outside, largest error {worst:.3f} of the tolerance")
+            if outside:
+                raise AssertionError(f"flash backward {what}: {outside} gradient entries outside "
+                                     f"the tolerance")
+    del q, k, v, g, got, want
+    print(f"flash backward (dq, dk, dv) against autograd through the plain version, float32 "
+          f"within {FLASH_BWD_TOL_F32:g} of each gradient's largest magnitude, bfloat16 within "
+          f"{FLASH_BWD_ULPS} bfloat16 steps of its binade: " + "; ".join(lines) + f" {card}")
+
+    # (b) the backward at the training shape: held to the plain version,
+    # timed from the profiler rows of its three kernels, beside its bound and
+    # SDPA's backward on the same tensors
+    b, h, s, _, d = FLASH_BWD_TRAIN
+    train_label = f"yi-9b training microbatch bfloat16 causal {FLASH_BWD_TRAIN}"
+    q, k, v, g = bwd_inputs(FLASH_BWD_TRAIN, torch.bfloat16, 1.0, seed=1)
+    out, lse = flash_kernel._forward(q, k, v, True, 0, 0.0, with_lse=True)
+
+    def bwd():
+        return flash_kernel.flash_attention_backward(q, k, v, out, lse, g, causal=True)
+
+    got = bwd()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    p_out = ref.flash_attention_ref(*leaves, causal=True)
+
+    def plain_bwd():
+        return torch.autograd.grad(p_out, leaves, g, retain_graph=True)
+
+    want = plain_bwd()
+    outside, worst = outside_tol(got, want, torch.bfloat16)
+    err = max(float((x.float() - y.float()).abs().max()) for x, y in zip(got, want))
+    if outside:
+        raise AssertionError(f"flash backward at {FLASH_BWD_TRAIN}: {outside} gradient entries "
+                             f"outside the tolerance")
+    reps = 5
+    rows = [r for r in traced_rows(bwd, reps, "the flash backward") if "flash_bwd" in r[2]]
+    parts = {}
+    for name_k in ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq"):
+        mine = [r for r in rows if name_k in r[2]]
+        if sum(r[1] for r in mine) != reps:
+            raise AssertionError(f"the trace of {reps} backward calls holds "
+                                 f"{sum(r[1] for r in mine)} launches of {name_k}")
+        parts[name_k] = sum(r[0] for r in mine) / reps / 1e3
+    bwd_ms = sum(parts.values())
+    plain_ms = traced_ms(plain_bwd, 2, "the plain backward")[0]
+    del got, want, p_out, leaves
+    torch.cuda.empty_cache()
+    s_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    s_out = F.scaled_dot_product_attention(*s_leaves, is_causal=True)
+    sdpa_ms = queued_ms(lambda: torch.autograd.grad(s_out, s_leaves, g, retain_graph=True), reps,
+                        "SDPA's backward")[0]
+    pairs = s * (s + 1) // 2
+    flops = FLASH_BWD_FACTOR * 4 * b * h * pairs * d
+    nbytes = nbytes_of(q, k, v, out, g, lse) + 3 * nbytes_of(q)
+    t_ops = flops / FLASH_PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    record("flash_attention_bwd", train_label, err, bwd_ms, plain_ms, b_ms, b_by, sdpa_ms)
+    print(f"flash backward {train_label}: {bwd_ms:.4f} ms a call on the device ("
+          + ", ".join(f"{kk} {vv:.4f}" for kk, vv in parts.items())
+          + f"), bound {b_ms:.4f} ms ({b_by}: {FLASH_BWD_FACTOR} x the forward's "
+          f"{4 * b * h * pairs * d:.4g} causal flops at 989 TFLOP/s; {nbytes} bytes at 3.35 "
+          f"TB/s {t_bytes:.4f} ms), {bwd_ms / b_ms:.1f}x the bound; plain backward (autograd "
+          f"through the plain version) {plain_ms:.3f} ms; SDPA's backward {sdpa_ms:.4f} ms; "
+          f"{outside} gradient entries outside the tolerance, largest error {worst:.3f} of it "
+          f"{card}")
+    del q, k, v, g, out, lse, s_leaves, s_out
+    torch.cuda.empty_cache()
+
+    # (c) the reduced models' gradients on the card against the CPU
+    for arch in TRAIN_GRAD_ARCHS:
+        cfg32 = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+        on_cpu = LMModel(cfg32, device="cpu").init(0)
+        on_card = LMModel(cfg32)
+        on_card.load_state_dict(on_cpu.state_dict())
+        batch = pipeline_for(cfg32, 2, 32, seed=5, device="cpu").batch_at(0)
+        n_attn = sum(kind in attention_mod.ATTN_KINDS for kind in cfg32.layer_kinds)
+        before = (flash_kernel.launches, flash_kernel.backward_launches)
+        lc, _, gc_card = value_and_grad(on_card, dict(on_card.named_parameters()),
+                                        {kk: vv.to(dev) for kk, vv in batch.items()})
+        torch.cuda.synchronize()
+        ran = (flash_kernel.launches - before[0], flash_kernel.backward_launches - before[1])
+        lh, _, gc_cpu = value_and_grad(on_cpu, dict(on_cpu.named_parameters()), batch)
+        if ran != (n_attn, n_attn):
+            raise AssertionError(f"train {cfg32.name}: flash forward / backward launches {ran}, "
+                                 f"expected {n_attn} each")
+        worst = 0.0
+        for pname, want in gc_cpu.items():
+            top = float(want.abs().max())
+            e = float((gc_card[pname].cpu() - want).abs().max())
+            worst = max(worst, e / max(top, 1e-30))
+            if e > TRAIN_GRAD_TOL * top:
+                raise AssertionError(f"train {cfg32.name}: the card's gradient of {pname} is "
+                                     f"{e} from the CPU's, over {TRAIN_GRAD_TOL} x {top}")
+        qkv = [float(gc_card[f"layers.{i}.attn.{w}"].abs().max())
+               for i, kind in enumerate(cfg32.layer_kinds) if kind in attention_mod.ATTN_KINDS
+               for w in ("wq", "wk", "wv")]
+        if min(qkv) <= 0.0:
+            raise AssertionError(f"train {cfg32.name}: a wq / wk / wv gradient is all zeros on "
+                                 f"the card (the attention's gradient stopped at the kernel)")
+        rel = abs(float(lc) - float(lh)) / abs(float(lh))
+        if rel > 1e-5:
+            raise AssertionError(f"train {cfg32.name}: loss {float(lc)} on the card, "
+                                 f"{float(lh)} on the CPU")
+        print(f"train {cfg32.name} float32: loss {float(lc):.6f} on the card, {float(lh):.6f} "
+              f"on the CPU (rel {rel:.2e}); {len(gc_cpu)} gradients, largest difference "
+              f"{worst:.2e} of the gradient's largest magnitude (tolerance {TRAIN_GRAD_TOL:g}); "
+              f"flash forward and backward launches {ran}; the smallest wq/wk/wv gradient "
+              f"max {min(qkv):.3g} > 0 {card}")
+        del on_cpu, on_card, gc_card, gc_cpu
+
+    # (d) yi-9b at full widths, cut to its first TRAIN_LAYERS layers, through Trainer
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+    ckpt_dir = ROOT / "build" / "ckpt-smoke"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    free_gb = shutil.disk_usage(ckpt_dir).free / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = LMModel(cfg)                   # uninitialised; Trainer.init_state draws it
+    pipe = pipeline_for(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    fired = []
+
+    def injector(step):
+        if step == TRAIN_FAIL_AT and not fired:
+            fired.append(step)
+            raise SimulatedNodeFailure(f"node lost before step {step}'s batch")
+
+    ckpt_mgr = CheckpointManager(str(ckpt_dir), keep=1)
+    saved_steps = []                       # the steps of the checkpoints written
+    save = ckpt_mgr.save
+
+    def counted_save(step, tree, blocking=False):
+        saved_steps.append(step)
+        save(step, tree, blocking)
+
+    ckpt_mgr.save = counted_save
+    trainer = Trainer(
+        model, pipe,
+        TrainConfig(num_steps=TRAIN_STEPS, microbatches=TRAIN_MICROBATCHES,
+                    ckpt_every=TRAIN_CKPT_EVERY, ckpt_dir=str(ckpt_dir), log_every=1, seed=0),
+        opt_cfg=AdamWConfig(),
+        sched_cfg=ScheduleConfig(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS),
+        checkpoint_mgr=ckpt_mgr,
+        failure_injector=injector,
+    )
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    state_gb = torch.cuda.memory_allocated() / 2**30
+    reset_counts()
+    t0 = time.perf_counter()
+    result = trainer.train(state=state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    hist = result["history"]
+    steps_run = [m["step"] for m in hist]
+    want_steps = sorted(list(range(1, TRAIN_STEPS + 1)) + [TRAIN_FAIL_AT])
+    if steps_run != want_steps or result["failures"] != 1 or result["step"] != TRAIN_STEPS:
+        raise AssertionError(f"train {cfg.name}: steps logged {steps_run}, failures "
+                             f"{result['failures']}, final step {result['step']}")
+    first, again = ({kk: vv for kk, vv in m.items() if kk != "step_time_s"}
+                    for m in hist if m["step"] == TRAIN_FAIL_AT)
+    if first != again:
+        raise AssertionError(f"train {cfg.name}: the replayed step {TRAIN_FAIL_AT} gave "
+                             f"{again}, the first attempt {first}")
+    if not all(math.isfinite(m["loss"]) for m in hist):
+        raise AssertionError(f"train {cfg.name}: a loss is not finite")
+    per_step = TRAIN_LAYERS * TRAIN_MICROBATCHES
+    expect = {kk: per_step * len(hist) if kk in ("flash_attention", "flash_attention_bwd")
+              else 0 for kk in launches}
+    if counts != expect:
+        raise AssertionError(f"train {cfg.name}: launches {counts} over {len(hist)} steps, "
+                             f"expected {expect}")
+    for kk in launches:
+        launches[kk] += counts[kk]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_lines = "; ".join(
+        f"step {m['step']}: loss {m['loss']:.6f} ce {m['ce']:.6f} {m['step_time_s']:.3f} s "
+        f"{tokens / m['step_time_s']:.0f} tokens/s" for m in hist)
+    print(f"train {cfg.name} ({TRAIN_LAYERS} of 48 layers at full widths, {n_params:,} "
+          f"parameters, bfloat16; AdamW float32 moments; global batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} in {TRAIN_MICROBATCHES} microbatches; checkpoint every "
+          f"{TRAIN_CKPT_EVERY} steps; a failure before step {TRAIN_FAIL_AT}'s batch): "
+          f"{step_lines}; the replayed step {TRAIN_FAIL_AT} equal bit for bit; {wall:.1f} s "
+          f"wall for {len(hist)} steps and {len(saved_steps)} checkpoints (steps "
+          f"{saved_steps}) "
+          f"({free_gb:.0f} GB free for them); flash forward {counts['flash_attention']} and "
+          f"backward {counts['flash_attention_bwd']} launches = {per_step} a step "
+          f"({TRAIN_LAYERS} layers x {TRAIN_MICROBATCHES} microbatches) x {len(hist)} steps; "
+          f"memory {state_gb:.2f} GiB after init, peak {peak_gb:.2f} GiB {card}")
+
+    # one more step under the profiler
+    batch = pipe.batch_at(TRAIN_STEPS)
+    rows, wall_us = trace(f"train {cfg.name} step", lambda: trainer.step_fn(
+        result["state"]["params"], result["state"]["opt"], batch))
+    busy = sum(r[0] for r in rows)
+    fwd_us = sum(r[0] for r in rows if "flash_attention" in r[2])
+    bwd_us = sum(r[0] for r in rows if "flash_bwd" in r[2])
+    gemm_us = sum(r[0] for r in rows if any(w in r[2].lower() for w in
+                                            ("nvjet", "gemm", "gemv", "xmma", "cutlass")))
+    print(f"train profile {cfg.name} step: device busy {busy / 1e3:.1f} ms of {wall_us / 1e3:.1f} "
+          f"ms wall under the profiler ({100 * busy / max(wall_us, 1e-9):.1f}%), flash forward "
+          f"{fwd_us / 1e3:.2f} ms ({100 * fwd_us / max(busy, 1e-9):.1f}% of busy), flash "
+          f"backward {bwd_us / 1e3:.2f} ms ({100 * bwd_us / max(busy, 1e-9):.1f}%), matmuls "
+          f"{gemm_us / 1e3:.2f} ms ({100 * gemm_us / max(busy, 1e-9):.1f}%), "
+          f"{sum(r[1] for r in rows)} device operations {card}")
+    del model, pipe, trainer, state, result, batch, rows
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the launcher, once, on the card
+    launch_dir = ROOT / "build" / "ckpt-launch"
+    shutil.rmtree(launch_dir, ignore_errors=True)
+    before = read_counts()
+    t0 = time.perf_counter()
+    rc = train_launch.main(["--arch", "yi-9b", "--reduced", "--steps", "4", "--batch", "4",
+                            "--seq", "64", "--microbatches", "2", "--warmup", "1",
+                            "--ckpt-dir", str(launch_dir), "--ckpt-every", "2"])
+    torch.cuda.synchronize()
+    after = read_counts()
+    shutil.rmtree(launch_dir, ignore_errors=True)
+    ran = {kk: after[kk] - before[kk] for kk in after}
+    if rc != 0 or not ran["flash_attention"] or not ran["flash_attention_bwd"]:
+        raise AssertionError(f"python -m repro_torch.launch.train: rc {rc}, launches {ran}")
+    for kk in launches:
+        launches[kk] += ran[kk]
+    print(f"python -m repro_torch.launch.train --arch yi-9b --reduced --steps 4 (on the card): "
+          f"rc {rc} in {time.perf_counter() - t0:.1f} s, flash forward "
+          f"{ran['flash_attention']} and backward {ran['flash_attention_bwd']} launches {card}")
+
+    # ---- 20. summary -------------------------------------------------------
+    phase_starts(20)
+    shown = {"flash_attention": f"yi-9b decode bfloat16 Skv={FLASH_DECODE[-1][3]}",
+             "flash_attention_bwd": train_label}
     entries = []
     for kname, _, _, source, replaces in kernels:
         if launches[kname] == 0:

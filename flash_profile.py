@@ -6,9 +6,10 @@
 
 Card only.  Builds ``src/repro_torch/kernels/csrc/flash_attention.cu`` and
 the given source with the port's nvcc flags into ``build/flash_profile/``
-(the two in parallel) and binds each library's ``ielas_flash_attention``: a
-source whose C entry has no ``window`` and ``softcap`` arguments is called
-without them.  At the shapes ``chip_smoke.py`` times the kernel without
+(the two in parallel) and binds each library's ``ielas_flash_attention_lse``
+with a null log-sum-exp, or, in a source from before it, its
+``ielas_flash_attention``: a source whose C entry has no ``window`` and
+``softcap`` arguments is called without them.  At the shapes ``chip_smoke.py`` times the kernel without
 gemma2's options (qwen2.5-32b's width (1, 40, 4096, 128) in bfloat16 and
 float32, causal and full; yi-9b's decode (4, 32, 1, Skv, 128), full, at 31
 and 4096 keys) it checks that both libraries give the same bits, then times
@@ -84,17 +85,21 @@ def main() -> int:
         jobs[key] = (so, subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
                                            str(src)], stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True))
-    fns, with_options = {}, {}
+    fns, with_options, with_lse = {}, {}, {}
     for key, (so, proc) in jobs.items():
         text, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {sources[key]}:\n{text}")
-        entry = re.search(r'extern "C" int ielas_flash_attention\(([^)]*)\)',
+        entry = re.search(r'extern "C" int (ielas_flash_attention(?:_lse)?)\(([^)]*)\)',
                           sources[key].read_text())
-        with_options[key] = entry is not None and "window" in entry.group(1)
-        fn = ctypes.CDLL(str(so)).ielas_flash_attention
+        if entry is None:
+            raise RuntimeError(f"no flash entry point in {sources[key]}")
+        with_lse[key] = entry.group(1).endswith("_lse")
+        with_options[key] = "window" in entry.group(2)
+        fn = getattr(ctypes.CDLL(str(so)), entry.group(1))
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (7 if with_options[key] else 6)
+        fn.argtypes = ([ctypes.c_void_p] * (5 if with_lse[key] else 4)
+                       + [ctypes.c_int] * (7 if with_options[key] else 6)
                        + [ctypes.c_float] * (2 if with_options[key] else 1) + [ctypes.c_void_p])
         fns[key] = fn
 
@@ -102,8 +107,9 @@ def main() -> int:
         b, h, sq, d = q.shape
         dtype = 1 if q.dtype == torch.bfloat16 else 0
         stream = torch.cuda.current_stream().cuda_stream
-        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, sq,
-                k.shape[2], d, dtype, int(causal))
+        head = ((q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+                + ((None,) if with_lse[key] else ())
+                + (b * h, sq, k.shape[2], d, dtype, int(causal)))
         if with_options[key]:
             err = fns[key](*head, window, 1.0 / math.sqrt(d), softcap, stream)
         else:

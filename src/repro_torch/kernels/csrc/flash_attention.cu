@@ -33,6 +33,11 @@
 // a tanhf to each score's exp2 (more SFU and FMA work a score, against the
 // tensor cores' 64 flops a score at D = 128).
 //
+// For training each row's log-sum-exp is written too, m + log2(l) in the log2 domain of the scaled, capped scores: the
+// backward kernel (flash_attention_bwd.cu) recomputes P from it.  The store
+// runs only when its pointer is not null, so the serving path's launches do
+// not change.
+//
 // Both paths share the outer design: one block per (query tile, batch *
 // head), the Pallas grid's sequential kv axis a loop inside the block that
 // carries the online-softmax state (m, l, acc) in registers -- Hopper
@@ -254,7 +259,8 @@ __device__ __forceinline__ void load_v(float (&x)[D / 16], const float* row, int
 template <int D, bool kCap, bool kWin>
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ out, int sq, int skv, int causal, int window, ScoreMap f) {
+    float* __restrict__ out, float* __restrict__ lse, int sq, int skv, int causal, int window,
+    ScoreMap f) {
   constexpr int kC = D / 16;
   constexpr int kHalf = kBQ / 2;
   extern __shared__ float4 smem4[];
@@ -386,6 +392,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_f32_kernel(
     const float denom = fmaxf(reduce_sum16(l[i]), 1e-30f);
     const int row = q0 + row_of(i);
     if (row >= sq) continue;
+    if (lse != nullptr && tx == 0) lse[bh * sq + row] = m[i] + log2f(denom);
     float* o_row = out + (bh * sq + row) * D;
 #pragma unroll
     for (int c = 0; c < kC; ++c) o_row[out_col<D>(tx, c)] = o[i][c] / denom;
@@ -393,8 +400,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_f32_kernel(
 }
 
 template <int D, bool kCap, bool kWin>
-int launch(const void* q, const void* k, const void* v, void* out, int bh, int sq, int skv,
-           int causal, int window, ScoreMap f, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int bh, int sq,
+           int skv, int causal, int window, ScoreMap f, cudaStream_t stream) {
   auto kernel = flash_attention_f32_kernel<D, kCap, kWin>;
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -403,7 +410,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh, int s
   const dim3 grid(bh, (sq + kBQ - 1) / kBQ);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), sq, skv, causal, window, f);
+      static_cast<float*>(out), lse, sq, skv, causal, window, f);
   return (int)cudaGetLastError();
 }
 
@@ -586,7 +593,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 // tiles t_begin .. tiles - 1 (the i-th in stage i % kStages).
 template <int D, bool kCap, bool kWin>
 __device__ __forceinline__ void consume(uint32_t q_s, uint32_t k_s, uint32_t v_s, uint32_t bars,
-                                        __nv_bfloat16* __restrict__ out, int bh, int q0,
+                                        __nv_bfloat16* __restrict__ out,
+                                        float* __restrict__ lse, int bh, int q0,
                                         int t_begin, int tiles, int sq, int skv, int causal,
                                         int window, ScoreMap f, int c) {
   using T = Tiles<D>;
@@ -696,6 +704,7 @@ __device__ __forceinline__ void consume(uint32_t q_s, uint32_t k_s, uint32_t v_s
     const int row = row0 + 8 * r;
     if (row >= sq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && quad_col == 0) lse[(size_t)bh * sq + row] = m[r] + log2f(denom);
     __nv_bfloat16* o_row = out + ((size_t)bh * sq + row) * D;
 #pragma unroll
     for (int j = 0; j < kO / 4; ++j) {
@@ -710,8 +719,8 @@ __device__ __forceinline__ void consume(uint32_t q_s, uint32_t k_s, uint32_t v_s
 template <int D, bool kCap, bool kWin>
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_bf16_kernel(
     const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
-    const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ out, int sq,
-    int skv, int causal, int window, ScoreMap f) {
+    const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int sq, int skv, int causal, int window, ScoreMap f) {
   using T = Tiles<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;   // 128-byte swizzle: 1024
@@ -760,8 +769,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_bf16_kernel(
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    consume<D, kCap, kWin>(q_s, k_s, v_s, bars, out, bh, q0, t_begin, tiles, sq, skv, causal,
-                           window, f, wg - 1);
+    consume<D, kCap, kWin>(q_s, k_s, v_s, bars, out, lse, bh, q0, t_begin, tiles, sq, skv,
+                           causal, window, f, wg - 1);
   }
 }
 
@@ -802,8 +811,8 @@ CUresult encode(CUtensorMap* map, const void* base, int bh, int rows, int d, int
 }
 
 template <int D, bool kCap, bool kWin>
-int launch(const void* q, const void* k, const void* v, void* out, int bh, int sq, int skv,
-           int causal, int window, ScoreMap f, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int bh, int sq,
+           int skv, int causal, int window, ScoreMap f, cudaStream_t stream) {
   if (encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap map_q, map_k, map_v;
   if (encode(&map_q, q, bh, sq, D, kBQ) != CUDA_SUCCESS ||
@@ -817,22 +826,22 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh, int s
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bh, (sq + kBQ - 1) / kBQ);
   kernel<<<grid, kThreads, smem, stream>>>(map_q, map_k, map_v,
-                                           static_cast<__nv_bfloat16*>(out), sq, skv, causal,
-                                           window, f);
+                                           static_cast<__nv_bfloat16*>(out), lse, sq, skv,
+                                           causal, window, f);
   return (int)cudaGetLastError();
 }
 
 }  // namespace bf16
 
 template <bool kBf16, bool kCap, bool kWin>
-int dispatch(const void* q, const void* k, const void* v, void* out, int bh, int sq, int skv,
-             int d, int causal, int window, ScoreMap f, cudaStream_t stream) {
-#define IELAS_FLASH_CASE(D)                                                                  \
-  case D:                                                                                    \
-    return kBf16 ? bf16::launch<D, kCap, kWin>(q, k, v, out, bh, sq, skv, causal, window, f, \
-                                               stream)                                       \
-                 : f32::launch<D, kCap, kWin>(q, k, v, out, bh, sq, skv, causal, window, f,  \
-                                              stream);
+int dispatch(const void* q, const void* k, const void* v, void* out, float* lse, int bh, int sq,
+             int skv, int d, int causal, int window, ScoreMap f, cudaStream_t stream) {
+#define IELAS_FLASH_CASE(D)                                                                   \
+  case D:                                                                                     \
+    return kBf16 ? bf16::launch<D, kCap, kWin>(q, k, v, out, lse, bh, sq, skv, causal, window, \
+                                               f, stream)                                     \
+                 : f32::launch<D, kCap, kWin>(q, k, v, out, lse, bh, sq, skv, causal, window,  \
+                                              f, stream);
   switch (d) {
     IELAS_FLASH_CASE(16)
     IELAS_FLASH_CASE(32)
@@ -844,13 +853,13 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int bh, int
 }
 
 template <bool kCap, bool kWin>
-int dispatch_type(const void* q, const void* k, const void* v, void* out, int bh, int sq,
-                  int skv, int d, int dtype, int causal, int window, ScoreMap f,
+int dispatch_type(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
+                  int sq, int skv, int d, int dtype, int causal, int window, ScoreMap f,
                   cudaStream_t s) {
   if (dtype == 0)
-    return dispatch<false, kCap, kWin>(q, k, v, out, bh, sq, skv, d, causal, window, f, s);
+    return dispatch<false, kCap, kWin>(q, k, v, out, lse, bh, sq, skv, d, causal, window, f, s);
   if (dtype == 1)
-    return dispatch<true, kCap, kWin>(q, k, v, out, bh, sq, skv, d, causal, window, f, s);
+    return dispatch<true, kCap, kWin>(q, k, v, out, lse, bh, sq, skv, d, causal, window, f, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -863,21 +872,27 @@ int dispatch_type(const void* q, const void* k, const void* v, void* out, int bh
 // row i sees keys i - window + 1 .. i; softcap > 0 caps each scaled score to
 // softcap * tanh(s / softcap) before the mask.  Each option is a template
 // parameter: with window 0 and softcap 0 the kernels are those without them.
+// lse, when not null: (bh, sq) float32, each row's log-sum-exp of its scores
+// in the log2 domain, m + log2(l) (the backward's input, flash_attention_bwd.cu).
 // Returns the cudaError_t of the launch (0 on success).
-extern "C" int ielas_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                     int bh, int sq, int skv, int d, int dtype, int causal,
-                                     int window, float scale, float softcap, void* stream) {
+extern "C" int ielas_flash_attention_lse(const void* q, const void* k, const void* v, void* out,
+                                         void* lse, int bh, int sq, int skv, int d, int dtype,
+                                         int causal, int window, float scale, float softcap,
+                                         void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (bh < 1 || sq < 1 || skv < 1 || window < 0 || !(softcap >= 0.f))
     return (int)cudaErrorInvalidValue;
   if (window > 0 && (!causal || sq > skv)) return (int)cudaErrorInvalidValue;
   const bool cap = softcap > 0.f, win = window > 0;
   const ScoreMap f{scale * kLog2e, scale, softcap, cap ? 1.f / softcap : 0.f};
+  float* l = static_cast<float*>(lse);
   if (cap && win)
-    return dispatch_type<true, true>(q, k, v, out, bh, sq, skv, d, dtype, causal, window, f, s);
+    return dispatch_type<true, true>(q, k, v, out, l, bh, sq, skv, d, dtype, causal, window, f,
+                                     s);
   if (cap)
-    return dispatch_type<true, false>(q, k, v, out, bh, sq, skv, d, dtype, causal, 0, f, s);
+    return dispatch_type<true, false>(q, k, v, out, l, bh, sq, skv, d, dtype, causal, 0, f, s);
   if (win)
-    return dispatch_type<false, true>(q, k, v, out, bh, sq, skv, d, dtype, causal, window, f, s);
-  return dispatch_type<false, false>(q, k, v, out, bh, sq, skv, d, dtype, causal, 0, f, s);
+    return dispatch_type<false, true>(q, k, v, out, l, bh, sq, skv, d, dtype, causal, window, f,
+                                      s);
+  return dispatch_type<false, false>(q, k, v, out, l, bh, sq, skv, d, dtype, causal, 0, f, s);
 }

@@ -1,4 +1,5 @@
-"""Flash attention kernel, forward (counterpart of ``repro/kernels/flash_attention.py``).
+"""Flash attention kernel, forward and backward (counterpart of
+``repro/kernels/flash_attention.py``).
 
 :func:`flash_attention` replaces ``flash_attention_pallas``: on CUDA
 tensors it launches the hand-written kernel in ``csrc/flash_attention.cu``
@@ -12,6 +13,15 @@ Beyond the Pallas kernel it takes gemma2's two options, a sliding window and
 a score softcap (the reference computes them in plain JAX,
 ``repro/models/attention.py``), so that every attention of the LM path runs
 on it.
+
+Training: on CUDA tensors that require a gradient (under grad mode) the call
+goes through :class:`_FlashFn`, whose forward launches the same kernel with
+each row's log-sum-exp as a second output and whose backward launches the
+hand-written ``csrc/flash_attention_bwd.cu`` (dQ, dK, dV; the reference has no
+backward kernel: XLA differentiates its plain-JAX attention).  No CUDA call
+with such inputs reaches the kernel any other way, so the gradient never
+stops at an output without a ``grad_fn``.  On CPU tensors autograd
+differentiates the plain version, which is the backward's plain twin.
 """
 from __future__ import annotations
 
@@ -23,8 +33,10 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-# Number of kernel launches since the last reset (CPU calls do not count).
+# Number of kernel launches since the last reset (CPU calls do not count):
+# the forward's, and the backward's (one a backward call, three kernels).
 launches = 0
+backward_launches = 0
 
 #: Head widths the kernel is compiled for.
 HEAD_DIMS = (16, 32, 64, 128)
@@ -32,15 +44,24 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Query rows of a block in both kernels; the query tiles run on grid y.
 _QUERY_TILE = 128
 
-# ielas_flash_attention(q, k, v, out, bh, sq, skv, d, dtype, causal, window, scale,
-#                       softcap, stream)
-ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+# ielas_flash_attention_lse(q, k, v, out, lse, bh, sq, skv, d, dtype, causal, window,
+#                           scale, softcap, stream); lse may be null
+ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
             + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+# ielas_flash_attention_bwd(q, k, v, out, dout, lse, delta, dq, dk, dv, bh, sq, skv, d,
+#                           dtype, causal, window, scale, softcap, stream)
+BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 
 
 @functools.cache
 def _kernel():
-    return _build.bind("flash_attention", "ielas_flash_attention", ARGTYPES)
+    return _build.bind("flash_attention", "ielas_flash_attention_lse", ARGTYPES)
+
+
+@functools.cache
+def _bwd_kernel():
+    return _build.bind("flash_attention_bwd", "ielas_flash_attention_bwd", BWD_ARGTYPES)
 
 
 def flash_attention(
@@ -91,20 +112,77 @@ def flash_attention(
     for t in (q, k, v):
         if t.data_ptr() % 16:    # TMA reads bases (and row strides) on 16 bytes
             raise ValueError("q, k and v must be 16-byte aligned")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashFn.apply(q, k, v, causal, window, softcap)
+    return _forward(q, k, v, causal, window, softcap, with_lse=False)[0]
+
+
+def _forward(q, k, v, causal: bool, window: int, softcap: float, with_lse: bool):
+    """(out, lse or None): one forward launch on checked, contiguous CUDA
+    tensors; ``lse`` (B * H, Sq) float32 in the log2 domain."""
+    b, h, sq, d = q.shape
     out = torch.empty_like(q)
+    lse = (torch.empty((b * h, sq), dtype=torch.float32, device=q.device) if with_lse
+           else None)
     if out.numel() == 0:
-        return out
+        return out, lse
     if k.shape[2] == 0:          # no key: every row sums to 0, as the plain version's
-        return out.zero_()
+        return out.zero_(), lse
     fn = _kernel()
-    with torch.cuda.device(device):
+    with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  b * h, sq, k.shape[2], d, _DTYPES[q.dtype], int(causal),
                  min(int(window), 2**31 - 1),   # a wider window sees what 2^31 - 1 does
                  1.0 / math.sqrt(d), float(softcap),
-                 torch.cuda.current_stream(device).cuda_stream)
+                 torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError_t {err}")
     global launches
     launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention_backward(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0,
+                             softcap: float = 0.0):
+    """(dq, dk, dv) of :func:`flash_attention` on CUDA tensors: ``out`` and
+    ``lse`` from the forward launch with the log-sum-exp (:class:`_FlashFn`)
+    on the same contiguous q, k, v and options, ``dout`` the output's
+    gradient.  One call launches the three kernels of
+    ``csrc/flash_attention_bwd.cu``; the gradients are in q's dtype."""
+    b, h, sq, d = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    dout = dout.to(q.dtype).contiguous()
+    delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    fn = _bwd_kernel()
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 b * h, sq, k.shape[2], d, _DTYPES[q.dtype], int(causal),
+                 min(int(window), 2**31 - 1), 1.0 / math.sqrt(d), float(softcap),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention backward launch failed: cudaError_t {err}")
+    global backward_launches
+    backward_launches += 1
+    return dq, dk, dv
+
+
+class _FlashFn(torch.autograd.Function):
+    """The kernel under autograd: the forward keeps each row's log-sum-exp,
+    the backward is :func:`flash_attention_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        out, lse = _forward(q, k, v, causal, window, softcap, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.options = dict(causal=causal, window=window, softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout, **ctx.options)
+        return dq, dk, dv, None, None, None

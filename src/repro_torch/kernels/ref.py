@@ -52,8 +52,16 @@ def fma_f32(a, b, c) -> torch.Tensor:
     on every input -- the same bits as CUDA's ``__fmaf_rn``.  At least one
     operand is a tensor.  On the card each step is one small kernel (18
     for three tensor operands), so callers fold their FMAs into as few
-    calls as they can.
+    calls as they can.  Differentiable: the gradient is that of ``a * b +
+    c``.
     """
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
+                                       for t in (a, b, c)):
+        return _Fma.apply(a, b, c)
+    return _fma_values(a, b, c)
+
+
+def _fma_values(a, b, c) -> torch.Tensor:
     a, b, c = _f64(a), _f64(b), _f64(c)
     prod = a * b
     s = prod + c
@@ -64,6 +72,89 @@ def fma_f32(a, b, c) -> torch.Tensor:
     # and that lane keeps s).
     fix = (err != 0) & ((s.view(torch.int64) & 1) == 0)
     return torch.where(fix, torch.nextafter(s, err * float("inf")), s).float()
+
+
+class _Fma(torch.autograd.Function):
+    """:func:`fma_f32` under autograd (its round to odd has no gradient)."""
+
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.numbers = tuple(None if isinstance(t, torch.Tensor) else t for t in (a, b))
+        ctx.shapes = tuple(t.shape if isinstance(t, torch.Tensor) else None for t in (a, b, c))
+        ctx.save_for_backward(*(t if isinstance(t, torch.Tensor) else None for t in (a, b)))
+        return _fma_values(a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = (t if t is not None else n for t, n in zip(ctx.saved_tensors, ctx.numbers))
+        grads = [None, None, None]
+        for i, other in ((0, b), (1, a)):
+            if ctx.needs_input_grad[i]:
+                grads[i] = (g * other).sum_to_size(ctx.shapes[i])
+        if ctx.needs_input_grad[2]:
+            grads[2] = g.sum_to_size(ctx.shapes[2])
+        return tuple(grads)
+
+
+# --------------------------------------------------------------------------
+# XLA:CPU's float32 tanh
+# --------------------------------------------------------------------------
+# Eigen's generic_fast_tanh_float: a rational function of x clamped to
+# [-7.99881172180175781, 7.99881172180175781] (x itself where |x| < 0.0004),
+# each Horner step one FMA.  torch.tanh differs from it in over half of
+# float32 outputs (a last bit).
+_TANH_CLAMP = 7.99881172180175781
+_TANH_TINY = 0.0004
+_TANH_ALPHA = (-2.76076847742355e-16, 2.00018790482477e-13, -8.60467152213735e-11,
+               5.12229709037114e-08, 1.48572235717979e-05, 6.37261928875436e-04,
+               4.89352455891786e-03)        # alpha_13, alpha_11, .., alpha_1
+_TANH_BETA = (1.19825839466702e-06, 1.18534705686654e-04, 2.26843463243900e-03,
+              4.89352518554385e-03)         # beta_6, beta_4, beta_2, beta_0
+
+
+def _xla_tanh_values(x: torch.Tensor) -> torch.Tensor:
+    xc = x.clamp(-_TANH_CLAMP, _TANH_CLAMP)
+    x2 = xc * xc
+    p = fma_f32(x2, _TANH_ALPHA[0], _TANH_ALPHA[1])
+    for coef in _TANH_ALPHA[2:]:
+        p = fma_f32(x2, p, coef)
+    p = xc * p
+    q = fma_f32(x2, _TANH_BETA[0], _TANH_BETA[1])
+    for coef in _TANH_BETA[2:]:
+        q = fma_f32(x2, q, coef)
+    return torch.where(x.abs() < _f32(_TANH_TINY), x, p / q)
+
+
+class _XlaTanh(torch.autograd.Function):
+    """:func:`xla_tanh_f32` with tanh's derivative ``1 - y^2`` (the FMA
+    steps have none of their own)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = _xla_tanh_values(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (1 - y * y)
+
+
+def xla_tanh_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's ``tanh`` of float32 ``x`` (what ``jax.jit(jnp.tanh)``
+    gives), bit for bit, differentiable.  (In bfloat16 torch.tanh gives the
+    reference's values.)"""
+    return _XlaTanh.apply(x)
+
+
+def tanh_f32(x: torch.Tensor) -> torch.Tensor:
+    """The port's float32 tanh: XLA:CPU's (:func:`xla_tanh_f32`) on CPU
+    tensors, where the tests hold the port to the jitted reference's bits;
+    ``torch.tanh`` on the card, where nothing is held to XLA:CPU's bits and
+    the rational form's tens of launches a call would lengthen host-bound
+    steps."""
+    return xla_tanh_f32(x) if x.device.type == "cpu" else torch.tanh(x)
 
 
 # --------------------------------------------------------------------------
@@ -191,7 +282,31 @@ def xla_softmax_f32(x: torch.Tensor, scale: float = 1.0,
     products; ``exp`` (XLA's) of ``x * scale - max``, which XLA contracts
     into one FMA; divided by the sum (``torch.softmax`` uses another exp and
     multiplies by the sum's reciprocal).  The sum runs in torch's order, not
-    XLA's, whose plan depends on the row's length (ROADMAP.md, queue 3)."""
+    XLA's, whose plan depends on the row's length (ROADMAP.md, queue 3).
+    Differentiable: the gradient is the softmax's, ``p (g - sum(g p))``
+    times ``scale`` (0 where masked)."""
+    return _XlaSoftmax.apply(x, scale, mask)
+
+
+class _XlaSoftmax(torch.autograd.Function):
+    """:func:`xla_softmax_f32` with the softmax's own gradient (XLA's exp
+    has none: it is built from bits)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, mask):
+        p = _xla_softmax_values(x, scale, mask)
+        ctx.scale = scale
+        ctx.save_for_backward(p)
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        (p,) = ctx.saved_tensors
+        gs = p * (g - (g * p).sum(-1, keepdim=True))
+        return gs * ctx.scale, None, None
+
+
+def _xla_softmax_values(x: torch.Tensor, scale: float, mask) -> torch.Tensor:
     s = x * scale
     if mask is not None:
         s = torch.where(mask, s, -1e30)
@@ -859,14 +974,17 @@ def flash_attention_ref(
 ) -> torch.Tensor:
     """Plain softmax attention in float32, cast to q's dtype -- what the
     flash kernel must match.  Each score is multiplied by the float32 scale
-    1 / sqrt(D), then, with ``softcap > 0``, capped to ``softcap * tanh(s /
-    softcap)``, then masked (the reference's order,
-    ``repro/models/attention.py``), then normalised as ``jax.nn.softmax``
-    on XLA:CPU (:func:`xla_softmax_f32`; uncapped, the scale's multiply and
-    the max's subtraction are one FMA there).  With ``causal`` a key
-    position j is visible to query position i iff j <= i (both from 0), and
-    with ``window > 0`` also iff i - j < window; a masked score is -1e30,
-    not -inf.  Long inputs run a block of query rows at a time."""
+    1 / sqrt(D), then, with ``softcap > 0``, capped to ``softcap * tanh(s *
+    (1 / softcap))`` (a multiply by the float32 reciprocal, as the jitted
+    reference computes it, and :func:`tanh_f32`: XLA's tanh on the CPU; the
+    kernel keeps tanhf, within its tolerance), then masked (the reference's order,
+    ``repro/models/attention.py``), then normalised as ``jax.nn.softmax`` on
+    XLA:CPU (:func:`xla_softmax_f32`; uncapped, the scale's multiply and the
+    max's subtraction are one FMA there).  With ``causal`` a key position j
+    is visible to query position i iff j <= i (both from 0), and with
+    ``window > 0`` also iff i - j < window; a masked score is -1e30, not
+    -inf.  Long inputs run a block of query rows at a time.  Differentiable:
+    autograd through it is the flash backward's plain version."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
     rows = max(1, _FLASH_REF_SCORES // max(1, b * h * skv))
@@ -888,7 +1006,7 @@ def _flash_rows(q, k, v, first: int, causal: bool, window: int, softcap: float):
             mask &= qpos - kpos < window
     if softcap > 0.0:
         s = raw * scale
-        p = xla_softmax_f32(softcap * torch.tanh(s / softcap), mask=mask)
+        p = xla_softmax_f32(softcap * tanh_f32(s * float(np.float32(1.0 / softcap))), mask=mask)
     else:
         p = xla_softmax_f32(raw, scale, mask)
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())

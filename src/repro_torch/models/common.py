@@ -8,7 +8,11 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ref import fma_f32, tanh_f32, xla_tanh_f32
 
 
 # --------------------------------------------------------------------------
@@ -32,11 +36,33 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.reciprocal(torch.exp(-x) + 1.0)
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its default tanh form) as XLA:CPU evaluates it:
+    ``x * (0.5 * (1 + tanh(c * (x + k * x^3))))`` with c = sqrt(2 / pi) and k
+    = 0.044715 in x's dtype.  In bfloat16 each operation is rounded to the
+    dtype; in float32 ``x + k * x^3`` is one FMA and the tanh is XLA's
+    (``kernels/ref.py::xla_tanh_f32``).  ``F.gelu`` differs in ~45% of
+    bfloat16 outputs.  On the card it is ``F.gelu``'s one kernel, as
+    ``kernels/ref.py::tanh_f32`` is ``torch.tanh`` there."""
+    if x.device.type != "cpu":
+        return F.gelu(x, approximate="tanh")
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype)
+    k = torch.tensor(0.044715, dtype=x.dtype)
+    x3 = x * x * x
+    if x.dtype == torch.float32:
+        t = xla_tanh_f32(c * fma_f32(k, x3, x))
+    else:
+        t = torch.tanh(c * (x + k * x3))
+    return x * (0.5 * (1 + t))
+
+
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
-    """gemma2 logit soft-capping: cap * tanh(x / cap)."""
+    """gemma2 logit soft-capping: cap * tanh(x / cap), as the jitted
+    reference computes it in float32: a multiply by the float32 reciprocal
+    of cap, and XLA's tanh on the CPU (``kernels/ref.py::tanh_f32``)."""
     if cap <= 0.0:
         return x
-    return cap * torch.tanh(x / cap)
+    return cap * tanh_f32(x * float(np.float32(1.0 / cap)))
 
 
 # --------------------------------------------------------------------------

@@ -3,7 +3,6 @@
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models import common
 
@@ -25,15 +24,11 @@ def init_mlp_params(gen: torch.Generator, d_model: int, d_ff: int, act: str,
             for name, shape in mlp_shapes(d_model, d_ff, act).items()}
 
 
-def _gelu(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x, approximate="tanh")       # jax.nn.gelu's default
-
-
 def mlp_block(params, x: torch.Tensor, act: str) -> torch.Tensor:
     """``params`` maps names to matrices in x's dtype."""
     if act == "gelu_mlp":
-        return _gelu(x @ params["w_in"]) @ params["w_out"]
+        return common.gelu(x @ params["w_in"]) @ params["w_out"]
     gate = x @ params["w_gate"]
     up = x @ params["w_up"]
-    act_fn = common.silu if act == "silu" else _gelu
+    act_fn = common.silu if act == "silu" else common.gelu
     return (act_fn(gate) * up) @ params["w_down"]

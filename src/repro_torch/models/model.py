@@ -23,7 +23,10 @@ recurrent gates stay float32.  The stub frontends (qwen2-vl's vision,
 musicgen's audio) take precomputed embeddings (B, S, d_model) in place of
 token ids; musicgen adds sinusoidal positions to its inputs and qwen2-vl's
 attention rotates by M-RoPE's three position streams, (B, S, 3) positions.
-``loss`` waits for the training slice.
+``loss`` is the reference's training objective, on the module's weights or
+on a dict of named tensors in their place (``torch.func.functional_call``):
+the trainer differentiates it with respect to such a dict, so the module's
+own parameters never require gradients and serving builds no graph.
 """
 from __future__ import annotations
 
@@ -352,6 +355,44 @@ class LMModel(nn.Module):
                 aux = {k: aux[k] + layer_aux[k] for k in aux}
         return self._logits(x.float()), new_caches, aux
 
+    def forward(self, inputs, positions: Optional[torch.Tensor] = None,
+                caches: Optional[Caches] = None):
+        """:meth:`apply` (``torch.func.functional_call`` calls the module)."""
+        return self.apply(inputs, positions, caches)
+
+    # ---------------- loss --------------------------------------------------
+    def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+        """batch: {"inputs": (B, S) or (B, S, D), "targets": (B, S) int,
+        optional "mask": (B, S), optional "positions"}; ``params``: named
+        tensors (``named_parameters`` names) used in place of the module's.
+        Returns (scalar loss, metrics):
+        the masked mean NLL of ``log_softmax``, plus the logit z-loss ``1e-4
+        * mean(logsumexp^2)``, plus the MoE's ``aux_loss`` and ``z_loss``;
+        metrics ``loss``, ``ce``, ``moe_aux``, ``moe_dropped`` (float32
+        0-dim tensors)."""
+        logits, _, aux = torch.func.functional_call(
+            self, params, (batch["inputs"], batch.get("positions")))
+        targets = torch.as_tensor(batch["targets"], device=logits.device).long()
+        mask = batch.get("mask")
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=logits.device)
+            nll = nll * mask
+            denom = torch.clamp(torch.sum(mask), min=1.0)
+        else:
+            denom = float(nll.numel())
+        ce = torch.sum(nll) / denom
+        # logit z-loss for stability at scale
+        z = torch.logsumexp(logits, dim=-1)
+        z_loss = 1e-4 * torch.mean(torch.square(z))
+        f32 = dict(dtype=torch.float32, device=logits.device)
+        moe_aux, moe_z, dropped = (torch.as_tensor(aux[k], **f32)
+                                   for k in ("aux_loss", "z_loss", "fraction_dropped"))
+        total = ce + z_loss + moe_aux + moe_z
+        metrics = {"loss": total, "ce": ce, "moe_aux": moe_aux, "moe_dropped": dropped}
+        return total, metrics
+
     # ---------------- caches -------------------------------------------------
     def init_caches(self, batch: int, max_len: int, dtype=torch.bfloat16) -> Caches:
         """A cache per layer: ``dtype`` (bfloat16 by default, as the
@@ -401,6 +442,31 @@ def params_from_reference(cfg: ModelConfig, tree: dict) -> dict[str, torch.Tenso
                          f"{sorted(shapes.keys() - flat.keys())}")
     return {k: torch.from_numpy(np.array(flat[k], np.float32)).reshape(shape)
             for k, shape in shapes.items()}
+
+
+def opt_state_from_reference(cfg: ModelConfig, state: dict) -> dict:
+    """The reference's AdamW state (``jax.tree.map(np.asarray,
+    adamw_init(...))`` or a later one: ``m`` and ``v`` pytrees shaped as the
+    parameters, a scalar ``step``) as the port's (``optim/adamw.py``): ``m``
+    and ``v`` named as ``named_parameters`` in the port's layout, in their
+    own dtype, and ``step`` an int32 0-dim tensor."""
+    def moments(tree):
+        leaves = []
+        _map_leaves(tree, leaves.append)
+        dtype = getattr(torch, str(np.asarray(leaves[0]).dtype))
+        out = params_from_reference(cfg, _map_leaves(tree, lambda a: np.asarray(a, np.float32)))
+        return {k: v.to(dtype) for k, v in out.items()}
+
+    return {"m": moments(state["m"]), "v": moments(state["v"]),
+            "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32)}
+
+
+def _map_leaves(node: Any, fn: Callable) -> Any:
+    if isinstance(node, dict):
+        return {k: _map_leaves(v, fn) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_map_leaves(v, fn) for v in node]
+    return fn(node)
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:

@@ -14,13 +14,15 @@ Plain PyTorch, as the reference is plain JAX (no Pallas kernel):
   GeLU-gated FFN.
 
 log-sigmoid is ``jax.nn.log_sigmoid``'s ``-logaddexp(-x, 0)``; the GeLU is
-the tanh form (``jax.nn.gelu``'s default); the conv's silu rounds as
-``jax.nn.silu`` (``common.silu``).  The states are float32 (the reference's
-``init_*_state``), except that the mLSTM's conv tail comes back in x's dtype
-after a step, as the reference's ``xp[:, s:]``.  The conv taps and bias, the
-gate biases and ``r_gates`` are held in float32 (the reference uses them in
-float32); the projections and ``ogate_skip`` in the model's dtype.  Each
-block returns a new state and leaves the one it was given unchanged.
+the tanh form (``jax.nn.gelu``'s default) as XLA rounds it (``common.gelu``),
+and the sLSTM cell's float32 tanh is XLA's on the CPU (``kernels/ref.py::tanh_f32``);
+the conv's silu rounds as ``jax.nn.silu`` (``common.silu``).  The states are
+float32 (the reference's ``init_*_state``), except that the mLSTM's conv
+tail comes back in x's dtype after a step, as the reference's ``xp[:, s:]``.
+The conv taps and bias, the gate biases and ``r_gates`` are held in float32
+(the reference uses them in float32); the projections and ``ogate_skip`` in
+the model's dtype.  Each block returns a new state and leaves the one it was
+given unchanged.
 """
 from __future__ import annotations
 
@@ -28,8 +30,8 @@ import dataclasses
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
+from repro_torch.kernels.ref import tanh_f32
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
 
@@ -257,7 +259,7 @@ def _slstm_step(r_gates: torch.Tensor, carry, gx: torch.Tensor):
     m_new = torch.maximum(logf + m, gi)
     i = torch.exp(gi - m_new)
     f = torch.exp(logf + m - m_new)
-    c_new = f * c + i * torch.tanh(gz)
+    c_new = f * c + i * tanh_f32(gz)
     n_new = f * n + i
     h_new = torch.sigmoid(go) * c_new / torch.clamp(n_new, min=1.0)
     return c_new, n_new, h_new, m_new
@@ -289,7 +291,7 @@ def slstm_block(
     # the block's gated FFN (projection factor 4/3, GeLU)
     gate = h @ params["w_ff_gate"]
     up = h @ params["w_ff_up"]
-    return (F.gelu(gate, approximate="tanh") * up) @ params["w_ff_down"], new_state
+    return (common.gelu(gate) * up) @ params["w_ff_down"], new_state
 
 
 def init_mlstm_state(cfg: ModelConfig, batch: int, device=None) -> MLSTMState:

@@ -1,6 +1,7 @@
-"""Stage heartbeats (copy of ``HostStatus`` and ``HeartbeatMonitor`` from
-``repro/runtime/fault_tolerance.py``; the reference module's checkpoint
-recovery and resharding need JAX and are not ported).
+"""Stage heartbeats and checkpoint-replay recovery (copies of
+``HostStatus``, ``HeartbeatMonitor`` and ``run_with_recovery`` from
+``repro/runtime/fault_tolerance.py``; the reference's ``elastic_reshard``
+needs a device mesh and waits for the port's ``distributed/``).
 
 Each stage thread of :class:`repro_torch.serving.stereo_service.StereoService`
 beats once per poll with its wave count as the step, so a wedged stage
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable
+from typing import Any, Callable
 
 
 @dataclasses.dataclass
@@ -80,3 +81,38 @@ class HeartbeatMonitor:
     def healthy_hosts(self) -> list[str]:
         bad = set(self.dead_hosts())
         return [h for h in self.hosts if h not in bad]
+
+
+# --------------------------------------------------------------------------
+# checkpoint-replay recovery
+# --------------------------------------------------------------------------
+def run_with_recovery(
+    step_fn: Callable[[int, Any], Any],
+    state: Any,
+    start_step: int,
+    num_steps: int,
+    checkpoint_mgr,
+    save_every: int,
+    restore_fn: Callable[[], tuple[int, Any]],
+    max_failures: int = 10,
+) -> tuple[Any, int, int]:
+    """Drive step_fn with checkpointing; on exception restore and replay.
+
+    Returns (final_state, final_step, failures_recovered).
+    """
+    failures = 0
+    step = start_step
+    while step < start_step + num_steps:
+        try:
+            state = step_fn(step, state)
+            step += 1
+            if step % save_every == 0:
+                checkpoint_mgr.save(step, state)
+        except Exception:
+            failures += 1
+            if failures > max_failures:
+                raise
+            checkpoint_mgr.wait()
+            step, state = restore_fn()
+    checkpoint_mgr.wait()
+    return state, step, failures

@@ -237,6 +237,26 @@ def test_apply_bfloat16_with_and_without_cache():
     assert held > 0
 
 
+def test_bfloat16_decode_logits_equal_the_jitted_reference():
+    """Every bfloat16 decode logit of 12 steps equals the jitted reference's,
+    bit for bit (ROADMAP.md queue 3: ~84% differed at every step while the
+    port took torch's tanh and ``F.gelu``).
+    The jitted reference computes the logit cap as XLA's float32 tanh
+    (``kernels/ref.py::xla_tanh_f32``) of a multiply by the float32 ``1 /
+    cap``, and GeGLU's ``jax.nn.gelu`` rounding every operation to bfloat16
+    (``common.gelu``)."""
+    ref, params, ref_apply, port = cases.model_pair(ARCH)
+    steps = 12
+    toks = cases.tokens(port.cfg.vocab_size, (2, steps), seed=21)
+    ref_caches, caches = ref.init_caches(2, steps), port.init_caches(2, steps)
+    differ = 0
+    for t in range(steps):
+        want, ref_caches = ref_apply(params, jnp.asarray(toks[:, t:t + 1]), ref_caches)
+        got, caches = cases.port_logits(port, toks[:, t:t + 1], caches)
+        differ += int(np.sum(got != np.asarray(want)))
+    assert differ == 0
+
+
 def test_serve_engine_float32_across_the_window():
     """Prompts of 10-16 tokens and 12 new ones: every wave decodes past the
     window of 16, so the local layers attend over a sliding cache span."""

@@ -1,6 +1,6 @@
 """The port stands alone: nothing under src/repro_torch/, in chip_smoke.py,
-dense_profile.py, flash_profile.py, stage_profile.py or service_profile.py
-imports jax or the reference package, and importing the port loads no jax."""
+dense_profile.py, flash_profile.py, stage_profile.py, service_profile.py or
+lm_step_profile.py imports jax or the reference package, and importing the port loads no jax."""
 import ast
 import os
 import subprocess
@@ -12,7 +12,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "dense_profile.py", ROOT / "flash_profile.py",
-    ROOT / "stage_profile.py", ROOT / "service_profile.py",
+    ROOT / "stage_profile.py", ROOT / "service_profile.py", ROOT / "lm_step_profile.py",
 ]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -36,7 +36,8 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_files_found():
     assert len(PORT_FILES) > 10
     for name in ("support_match", "dense_match_stream", "dense_match_windowed",
-                 "dense_match_warm", "sobel", "median", "flash_attention"):
+                 "dense_match_warm", "sobel", "median", "flash_attention",
+                 "flash_attention_bwd"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / f"{name}.cu").exists()
 
 
@@ -80,7 +81,10 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.configs.deepseek_v2_lite_16b, repro_torch.configs.deepseek_v2_236b, "
         "repro_torch.models.mamba, repro_torch.configs.jamba_1_5_large_398b, "
         "repro_torch.models.xlstm, repro_torch.configs.xlstm_350m, "
-        "repro_torch.configs.qwen2_vl_7b, repro_torch.configs.musicgen_large\n"
+        "repro_torch.configs.qwen2_vl_7b, repro_torch.configs.musicgen_large, "
+        "repro_torch.data.tokens, repro_torch.optim.adamw, repro_torch.optim.schedule, "
+        "repro_torch.optim.compression, repro_torch.runtime.train_loop, "
+        "repro_torch.runtime.checkpoint, repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -6,6 +6,7 @@ on a machine with a card and without JAX:
     python -m pytest -m gpu tests/test_torch_kernels_gpu.py
 """
 import ctypes
+import math
 import re
 
 import numpy as np
@@ -48,7 +49,8 @@ _C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_flo
     ("dense_match_warm", "ielas_warm_reciprocal", dense_kernel.WARM_RECIPROCAL_ARGTYPES),
     ("sobel", "ielas_sobel", sobel_kernel.ARGTYPES),
     ("median", "ielas_median3x3", median_kernel.ARGTYPES),
-    ("flash_attention", "ielas_flash_attention", flash_kernel.ARGTYPES),
+    ("flash_attention", "ielas_flash_attention_lse", flash_kernel.ARGTYPES),
+    ("flash_attention_bwd", "ielas_flash_attention_bwd", flash_kernel.BWD_ARGTYPES),
 ])
 def test_binding_matches_launcher_signature(source, symbol, argtypes):
     text = (_build.CSRC / f"{source}.cu").read_text()
@@ -379,3 +381,43 @@ def test_dense_kernels_match_plain_for_any_sigma_on_card(sigma, cuda_device):
     got = dense_kernel.dense_match_candidates(*args, **kw)
     want = ref.dense_match_rows_windowed_ref(*args, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# Flash backward: the kernel's gradients (through ``_FlashFn``) against
+# autograd through the plain version, on the same inputs and output gradient.
+# Tolerance of each gradient: float32 within 2**-16 of its largest magnitude
+# (sums in another order), bfloat16 within 4 bfloat16 steps of its largest
+# magnitude's binade (both round float32 sums to bfloat16; the kernel's Delta
+# reads the bf16-rounded output), as chip_smoke.py's FLASH_BWD_TOL.
+FLASH_BWD_CASES = [
+    # (B, H, Sq, Skv, D, causal, window, softcap, q scale)
+    (1, 2, 200, 200, 16, True, 0, 0.0, 1.0),
+    (2, 3, 257, 257, 64, False, 0, 0.0, 1.0),
+    (1, 2, 130, 300, 128, False, 0, 0.0, 1.0),
+    (1, 2, 300, 300, 128, True, 37, 0.0, 1.0),
+    (1, 2, 300, 300, 32, True, 64, 50.0, 30.0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_backward_matches_plain_on_card(case, dtype, cuda_device):
+    from repro_torch.kernels import ref
+    b, h, sq, skv, d, causal, window, cap, q_scale = case
+    gen = torch.Generator().manual_seed(sq + d)
+    shapes = [(b, h, sq, d), (b, h, skv, d), (b, h, skv, d), (b, h, sq, d)]
+    q, k, v, g = (torch.randn(s, generator=gen) for s in shapes)
+    q = q * q_scale
+    q, k, v, g = (t.to(cuda_device, getattr(torch, dtype)) for t in (q, k, v, g))
+    grads = []
+    for fn in (flash_kernel.flash_attention, ref.flash_attention_ref):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn(*leaves, causal=causal, window=window, softcap=cap).backward(g)
+        grads.append([t.grad.float() for t in leaves])
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        top = float(want.abs().max())
+        tol = (2.0 ** -16 * top if dtype == "float32"
+               else 4 * 2.0 ** (math.floor(math.log2(top)) - 7))
+        assert float((got - want).abs().max()) <= tol

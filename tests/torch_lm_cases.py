@@ -31,6 +31,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import get_config as ref_get_config
@@ -52,6 +53,18 @@ _TINY = dict(name="tiny", family="dense", num_layers=2, d_model=64, num_heads=4,
              num_kv_heads=2, d_ff=128, vocab_size=256, q_chunk=32, kv_chunk=32)
 TINY = ModelConfig(**_TINY)
 REF_TINY = RefModelConfig(**_TINY)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module's torch work (imported by the
+    training tests): their models are small, and the suite's workers share
+    the host, where torch's default of a thread per core makes every small
+    operation wait for threads that other workers' processes hold."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def bf16_steps(want: np.ndarray, steps: int = 4) -> dict:
