@@ -7,7 +7,8 @@ Phases (any failure exits nonzero):
  1. device: card name and count, ``nvidia-smi`` name and power limit, versions;
  2. build: compile every ``src/repro_torch/kernels/csrc/*.cu`` in parallel
     (the flash forward and its backward are two of them);
-    the flash library's SASS must hold HGMMA (bf16 on the tensor cores);
+    the flash forward's and the backward's libraries' SASS must each hold
+    HGMMA (bf16 on the tensor cores);
  3. kernels: each CUDA kernel against its plain PyTorch version on the card,
     at the shapes the frame path and the wave give it (elas-kitti,
     elas-tsukuba, and disp_min=4 dense cases), with 0 mismatches allowed
@@ -174,8 +175,10 @@ Phases (any failure exits nonzero):
 19. training: (a) the flash backward kernel (``csrc/flash_attention_bwd.cu``
     through the kernel's autograd Function) against autograd through the
     plain version at FLASH_BWD_CASES (causal, full, gemma2's window and
-    softcap, D = 64, a ragged S; float32 and bfloat16), 0 gradient entries
-    outside FLASH_BWD_TOL_F32 / FLASH_BWD_ULPS allowed; (b) the backward at
+    softcap, D = 64, a ragged S; float32 and bfloat16; bfloat16 also at
+    D = 32 and 16), 0 gradient entries outside FLASH_BWD_TOL_F32 /
+    FLASH_BWD_ULPS allowed, and a second backward call on the same inputs
+    must give the same bits (the replay in (d) relies on it); (b) the backward at
     the training shape FLASH_BWD_TRAIN, held to the plain version and timed
     from its three kernels' profiler rows beside its bound, the plain
     backward's device time and SDPA's backward; (c) yi-9b-reduced and
@@ -415,7 +418,9 @@ FLIP_MARGIN = 0.01
 # and output gradient: (B, H, Sq, Skv, D, causal, window, softcap, q scale),
 # each in float32 and bfloat16 -- causal and full at (2, 8, 1024, 1024, 128),
 # gemma2's options (window 256 with the softcap, and the softcap alone, q
-# scaled as phase 3's so that the cap bites), D = 64, a ragged S = 1000.
+# scaled as phase 3's so that the cap bites), D = 64, a ragged S = 1000 --
+# and FLASH_BWD_CASES_BF16 in bfloat16 alone: the tensor-core kernels' one
+# zero-filled 64-column box at D = 32 and D = 16.
 FLASH_BWD_CASES = [
     (2, 8, 1024, 1024, 128, True, 0, 0.0, 1.0),
     (2, 8, 1024, 1024, 128, False, 0, 0.0, 1.0),
@@ -423,6 +428,10 @@ FLASH_BWD_CASES = [
     (2, 8, 1024, 1024, 128, True, 0, GEMMA2_SOFTCAP, FLASH_CAP_Q_SCALE),
     (2, 8, 1024, 1024, 64, True, 0, 0.0, 1.0),
     (2, 8, 1000, 1000, 128, True, 0, 0.0, 1.0),
+]
+FLASH_BWD_CASES_BF16 = [
+    (2, 8, 1024, 1024, 32, True, 0, 0.0, 1.0),
+    (2, 8, 1024, 1024, 16, True, 0, 0.0, 1.0),
 ]
 # The tolerance of each gradient (dq, dk, dv), elementwise: float32 within
 # FLASH_BWD_TOL_F32 of the gradient's largest magnitude (float32 sums of up
@@ -566,15 +575,16 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {src}: {line.strip()}")
-    # The bfloat16 flash path must reach the tensor cores: Hopper's warpgroup
-    # MMA shows in the SASS as HGMMA.
+    # The bfloat16 flash paths, forward and backward, must reach the tensor
+    # cores: Hopper's warpgroup MMA shows in the SASS as HGMMA.
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path("flash_attention"))],
-                          capture_output=True, text=True, check=True, timeout=300).stdout
-    hgmma = sum("HGMMA" in line for line in sass.splitlines())
-    print(f"flash_attention SASS: {hgmma} HGMMA instructions")
-    if not hgmma:
-        raise AssertionError("the flash library holds no HGMMA: bf16 misses the tensor cores")
+    for lib in ("flash_attention", "flash_attention_bwd"):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(lib))],
+                              capture_output=True, text=True, check=True, timeout=300).stdout
+        hgmma = sum("HGMMA" in line for line in sass.splitlines())
+        print(f"{lib} SASS: {hgmma} HGMMA instructions")
+        if not hgmma:
+            raise AssertionError(f"the {lib} library holds no HGMMA: bf16 misses the tensor cores")
 
     def cuda_ms(fn, reps: int) -> float:
         fn()
@@ -2638,6 +2648,9 @@ def main() -> int:
         fn(*leaves, **opts).backward(g)
         return [t.grad for t in leaves]
 
+    def bits_of(t):
+        return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
     def outside_tol(got, want, dtype) -> tuple[int, float]:
         """(outputs outside the backward's tolerance, the largest error over
         its tolerance) over the three gradients."""
@@ -2650,29 +2663,39 @@ def main() -> int:
             worst = max(worst, float(err.max()) / tol)
         return outside, worst
 
-    # (a) the backward kernel against autograd through the plain version
+    # (a) the backward kernel against autograd through the plain version, and
+    # against itself: a second call on the same inputs gives the same bits
     lines = []
-    for b, h, sq, skv, d, causal, window, cap, q_scale in FLASH_BWD_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
+    both = (torch.float32, torch.bfloat16)
+    for (b, h, sq, skv, d, causal, window, cap, q_scale), dtypes in (
+            [(case, both) for case in FLASH_BWD_CASES]
+            + [(case, (torch.bfloat16,)) for case in FLASH_BWD_CASES_BF16]):
+        for dtype in dtypes:
             q, k, v, g = bwd_inputs((b, h, sq, skv, d), dtype, q_scale, seed=sq + d)
             opts = dict(causal=causal, window=window, softcap=cap)
             before = flash_kernel.backward_launches
             got = grads_of(flash_kernel.flash_attention, q, k, v, g, **opts)
+            again = grads_of(flash_kernel.flash_attention, q, k, v, g, **opts)
             torch.cuda.synchronize()
-            if flash_kernel.backward_launches != before + 1:
+            if flash_kernel.backward_launches != before + 2:
                 raise AssertionError("flash backward: the kernel path did not launch the "
-                                     "backward kernel once")
+                                     "backward kernel once a call")
+            unequal = sum(int((bits_of(x) != bits_of(y)).sum()) for x, y in zip(got, again))
             want = grads_of(ref.flash_attention_ref, q, k, v, g, **opts)
             outside, worst = outside_tol(got, want, dtype)
             what = (f"({b}, {h}, {sq}, {skv}, {d}) {str(dtype)[6:]} "
                     f"{'causal' if causal else 'full'}"
                     + (f" window {window}" if window else "")
                     + (f" softcap {cap:g}" if cap else ""))
-            lines.append(f"{what}: {outside} outside, largest error {worst:.3f} of the tolerance")
+            lines.append(f"{what}: {outside} outside, largest error {worst:.3f} of the tolerance, "
+                         f"{unequal} entries whose bits differ between two calls")
             if outside:
                 raise AssertionError(f"flash backward {what}: {outside} gradient entries outside "
                                      f"the tolerance")
-    del q, k, v, g, got, want
+            if unequal:
+                raise AssertionError(f"flash backward {what}: two calls on the same inputs differ "
+                                     f"in {unequal} gradient entries")
+    del q, k, v, g, got, again, want
     print(f"flash backward (dq, dk, dv) against autograd through the plain version, float32 "
           f"within {FLASH_BWD_TOL_F32:g} of each gradient's largest magnitude, bfloat16 within "
           f"{FLASH_BWD_ULPS} bfloat16 steps of its binade: " + "; ".join(lines) + f" {card}")
@@ -2701,15 +2724,20 @@ def main() -> int:
     if outside:
         raise AssertionError(f"flash backward at {FLASH_BWD_TRAIN}: {outside} gradient entries "
                              f"outside the tolerance")
+    # The trace must hold each of the three kernels once a call.  A trace can
+    # lose a record (one of its 15 once): it is then taken again, up to five
+    # times, and a trace that lost one is never timed.
     reps = 5
-    rows = [r for r in traced_rows(bwd, reps, "the flash backward") if "flash_bwd" in r[2]]
-    parts = {}
-    for name_k in ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq"):
-        mine = [r for r in rows if name_k in r[2]]
-        if sum(r[1] for r in mine) != reps:
-            raise AssertionError(f"the trace of {reps} backward calls holds "
-                                 f"{sum(r[1] for r in mine)} launches of {name_k}")
-        parts[name_k] = sum(r[0] for r in mine) / reps / 1e3
+    names_k = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
+    for _ in range(5):
+        rows = [r for r in traced_rows(bwd, reps, "the flash backward") if "flash_bwd" in r[2]]
+        held = {nk: sum(r[1] for r in rows if nk in r[2]) for nk in names_k}
+        if all(n == reps for n in held.values()):
+            break
+        print(f"the trace of {reps} backward calls holds {held} launches; taken again")
+    else:
+        raise AssertionError(f"five traces of {reps} backward calls lost launches of its kernels")
+    parts = {nk: sum(r[0] for r in rows if nk in r[2]) / reps / 1e3 for nk in names_k}
     bwd_ms = sum(parts.values())
     plain_ms = traced_ms(plain_bwd, 2, "the plain backward")[0]
     del got, want, p_out, leaves

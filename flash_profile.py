@@ -3,10 +3,13 @@
 
     git show COMMIT:src/repro_torch/kernels/csrc/flash_attention.cu > build/parent_flash.cu
     python3 flash_profile.py --parent build/parent_flash.cu [--rounds 3] [--reps 50]
+    git show COMMIT:src/repro_torch/kernels/csrc/flash_attention_bwd.cu > build/parent_bwd.cu
+    python3 flash_profile.py --bwd-parent build/parent_bwd.cu [--parent ...]
 
 Card only.  Builds ``src/repro_torch/kernels/csrc/flash_attention.cu`` and
 the given source with the port's nvcc flags into ``build/flash_profile/``
-(the two in parallel) and binds each library's ``ielas_flash_attention_lse``
+(the two in parallel; ``csrc/`` is on the include path, so a copy elsewhere
+finds ``flash_common.cuh``) and binds each library's ``ielas_flash_attention_lse``
 with a null log-sum-exp, or, in a source from before it, its
 ``ielas_flash_attention``: a source whose C entry has no ``window`` and
 ``softcap`` arguments is called without them.  At the shapes ``chip_smoke.py`` times the kernel without
@@ -18,7 +21,12 @@ device time, no host gap) in turns -- parent, this tree, this tree, parent
 -- for ``--rounds`` rounds, and prints the median ms a launch of each and
 their ratio.  At gemma2's shapes (its decode, and (1, 32, 8192, 8192,
 128) causal with and without the window of 4096; q scaled by 30) it times
-this tree alone, with its softcap of 50 and without, in turns.  Then the
+this tree alone, with its softcap of 50 and without, in turns.  With
+``--bwd-parent`` (repeatable) it first times the backward of this tree
+against each given source the same way, in bfloat16 at chip_smoke.py's
+training shape (2, 32, 4096, 4096, 128) causal, and prints the largest
+difference between the two sources' gradients; without ``--parent`` it
+stops there.  Then the
 softcap rows' accuracy at two q scales (12 and 30): the bfloat16 kernel's
 outputs outside one bfloat16 ulp of the plain version (chip_smoke.py's
 FLASH_TOL), and, in float32, the kernel's and the plain version's largest
@@ -58,10 +66,15 @@ GEMMA2 = [
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--parent", required=True, help="another flash_attention.cu to time against")
+    ap.add_argument("--parent", help="another flash_attention.cu to time against")
+    ap.add_argument("--bwd-parent", action="append", default=[],
+                    help="another flash_attention_bwd.cu to time the backward against "
+                         "(repeatable)")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
+    if not args.parent and not args.bwd_parent:
+        ap.error("give --parent, --bwd-parent or both")
 
     import torch
 
@@ -77,13 +90,39 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
+    def graph_ms(fn) -> float:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            for _ in range(args.reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / args.reps
+
     OUT.mkdir(parents=True, exist_ok=True)
+    for parent in args.bwd_parent:
+        _profile_backward(torch, _build, Path(parent), graph_ms, args.rounds, args.reps, dev,
+                          card)
+    if not args.parent:
+        return 0
+
     sources = {"parent": Path(args.parent), "this tree": _build.CSRC / "flash_attention.cu"}
     jobs = {}
     for key, src in sources.items():
         so = OUT / f"{key.replace(' ', '_')}.so"
-        jobs[key] = (so, subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                                           str(src)], stdout=subprocess.PIPE,
+        jobs[key] = (so, subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                                           str(_build.CSRC), "-o", str(so), str(src)],
+                                          stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True))
     fns, with_options, with_lse = {}, {}, {}
     for key, (so, proc) in jobs.items():
@@ -118,25 +157,6 @@ def main() -> int:
             err = fns[key](*head, 1.0 / math.sqrt(d), stream)
         if err:
             raise RuntimeError(f"{key}: launch failed, cudaError_t {err}")
-
-    def graph_ms(fn) -> float:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-            for _ in range(args.reps):
-                fn()
-        graph.replay()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / args.reps
 
     def inputs(shape, dtype, q_scale=1.0, seed=0):
         b, h, sq, skv, d = shape
@@ -217,6 +237,76 @@ def main() -> int:
             del q, k, v, out, want, diff, bad, q32, k32, v32, out32, plain32, exact
             torch.cuda.empty_cache()
     return 0
+
+
+# (label, (B, H, Sq, Skv, D), causal): the backward at chip_smoke.py's
+# training shape (FLASH_BWD_TRAIN), bfloat16.
+BWD_SHAPES = [
+    ("yi-9b training microbatch bfloat16 causal", (2, 32, 4096, 4096, 128), True),
+]
+
+
+def _profile_backward(torch, _build, parent: Path, graph_ms, rounds: int, reps: int, dev,
+                      card: str) -> None:
+    """Time this tree's ``ielas_flash_attention_bwd`` against the one in
+    ``parent`` (same C signature; the scratch is sized for this tree's,
+    which is the larger) in turns -- parent, this tree, this tree, parent --
+    on the output and log-sum-exp of this tree's forward, and print the
+    median ms a call of each, their ratio and the largest difference
+    between their gradients."""
+    from repro_torch.kernels import flash_attention as flash_kernel
+
+    sources = {"parent": parent, "this tree": _build.CSRC / "flash_attention_bwd.cu"}
+    jobs = {}
+    for key, src in sources.items():
+        so = OUT / f"bwd_{key.replace(' ', '_')}_{parent.stem}.so"
+        jobs[key] = (so, subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                                           str(_build.CSRC), "-o", str(so), str(src)],
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True))
+    fns = {}
+    for key, (so, proc) in jobs.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {sources[key]}:\n{text}")
+        fn = ctypes.CDLL(str(so)).ielas_flash_attention_bwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = flash_kernel.BWD_ARGTYPES
+        fns[key] = fn
+    for label, (b, h, sq, skv, d), causal in BWD_SHAPES:
+        gen = torch.Generator().manual_seed(1)
+        q, k, v, g = ((torch.randn((b, h, n, d), generator=gen)).to(dev, torch.bfloat16)
+                      for n in (sq, skv, skv, sq))
+        out, lse = flash_kernel._forward(q, k, v, causal, 0, 0.0, with_lse=True)
+        scratch = torch.empty(2 * b * h * (-(-sq // 4) * 4), dtype=torch.float32, device=dev)
+        grads = {key: [torch.empty_like(t) for t in (q, k, v)] for key in fns}
+
+        def launch(key):
+            dq, dk, dv = grads[key]
+            err = fns[key](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                           g.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
+                           dk.data_ptr(), dv.data_ptr(), b * h, sq, skv, d, 1, int(causal), 0,
+                           1.0 / math.sqrt(d), 0.0, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{key}: backward launch failed, cudaError_t {err}")
+
+        for key in fns:
+            launch(key)
+        torch.cuda.synchronize()
+        diff = max(float((x.float() - y.float()).abs().max())
+                   for x, y in zip(grads["parent"], grads["this tree"]))
+        times = {key: [] for key in fns}
+        for _ in range(rounds):
+            for key in ("parent", "this tree", "this tree", "parent"):
+                times[key].append(graph_ms(lambda: launch(key)))
+        med = {key: sorted(t)[len(t) // 2] for key, t in times.items()}
+        print(f"flash backward {label} {(b, h, sq, skv, d)} against {parent}: parent "
+              f"{med['parent']:.4f} ms, this tree {med['this tree']:.4f} ms a call (median of "
+              f"{len(times['parent'])}, CUDA graph of {reps}; this tree / parent "
+              f"{med['this tree'] / med['parent']:.3f}); largest gradient difference {diff:.4g} "
+              f"{card}", flush=True)
+        del q, k, v, g, out, lse, scratch, grads
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -17,7 +17,9 @@ on it.
 Training: on CUDA tensors that require a gradient (under grad mode) the call
 goes through :class:`_FlashFn`, whose forward launches the same kernel with
 each row's log-sum-exp as a second output and whose backward launches the
-hand-written ``csrc/flash_attention_bwd.cu`` (dQ, dK, dV; the reference has no
+hand-written ``csrc/flash_attention_bwd.cu`` (dQ, dK, dV: Delta, then dK/dV
+and dQ in two deterministic passes; bfloat16 on the tensor cores with
+``wgmma`` fed by TMA, float32 on the CUDA cores; the reference has no
 backward kernel: XLA differentiates its plain-JAX attention).  No CUDA call
 with such inputs reaches the kernel any other way, so the gradient never
 stops at an output without a ``grad_fn``.  On CPU tensors autograd
@@ -34,7 +36,7 @@ import torch
 from repro_torch.kernels import _build, ref
 
 # Number of kernel launches since the last reset (CPU calls do not count):
-# the forward's, and the backward's (one a backward call, three kernels).
+# the forward's, and the backward's (one a backward call: Delta, dK/dV, dQ).
 launches = 0
 backward_launches = 0
 
@@ -149,13 +151,20 @@ def flash_attention_backward(q, k, v, out, lse, dout, *, causal: bool = True, wi
     ``lse`` from the forward launch with the log-sum-exp (:class:`_FlashFn`)
     on the same contiguous q, k, v and options, ``dout`` the output's
     gradient.  One call launches the three kernels of
-    ``csrc/flash_attention_bwd.cu``; the gradients are in q's dtype."""
+    ``csrc/flash_attention_bwd.cu`` (Delta = rowsum(dout * out), then dK/dV
+    and dQ; bfloat16 by ``wgmma`` on the tensor cores, float32 on the CUDA
+    cores); the gradients are in q's dtype."""
     b, h, sq, d = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     dout = dout.to(q.dtype).contiguous()
-    delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    if dout.data_ptr() % 16:     # TMA reads bases on 16 bytes, as q, k and v
+        dout = dout.clone()
+    # Scratch: each row's Delta and a copy of its log-sum-exp, rows of sq
+    # rounded up to 4 floats (the bfloat16 kernels read them through a tensor
+    # map, whose strides are multiples of 16 bytes).
+    delta = torch.empty(2 * b * h * (-(-sq // 4) * 4), dtype=torch.float32, device=q.device)
     fn = _bwd_kernel()
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),

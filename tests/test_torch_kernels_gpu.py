@@ -396,7 +396,21 @@ FLASH_BWD_CASES = [
     (1, 2, 130, 300, 128, False, 0, 0.0, 1.0),
     (1, 2, 300, 300, 128, True, 37, 0.0, 1.0),
     (1, 2, 300, 300, 32, True, 64, 50.0, 30.0),
+    # The bfloat16 kernels' tiles are 128 own rows and 64 streamed rows: many
+    # key and query tiles, a window crossing both tiles' edges, the softcap.
+    (1, 2, 1024, 1024, 128, True, 0, 0.0, 1.0),
+    (1, 2, 1024, 1024, 64, True, 200, 0.0, 1.0),
+    (1, 2, 1024, 1024, 128, False, 0, 50.0, 30.0),
 ]
+
+
+def _flash_bwd_inputs(case, dtype, device):
+    b, h, sq, skv, d, _, _, _, q_scale = case
+    gen = torch.Generator().manual_seed(sq + d)
+    shapes = [(b, h, sq, d), (b, h, skv, d), (b, h, skv, d), (b, h, sq, d)]
+    q, k, v, g = (torch.randn(s, generator=gen) for s in shapes)
+    q = q * q_scale
+    return [t.to(device, getattr(torch, dtype)) for t in (q, k, v, g)]
 
 
 @pytest.mark.gpu
@@ -404,12 +418,8 @@ FLASH_BWD_CASES = [
 @pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_flash_backward_matches_plain_on_card(case, dtype, cuda_device):
     from repro_torch.kernels import ref
-    b, h, sq, skv, d, causal, window, cap, q_scale = case
-    gen = torch.Generator().manual_seed(sq + d)
-    shapes = [(b, h, sq, d), (b, h, skv, d), (b, h, skv, d), (b, h, sq, d)]
-    q, k, v, g = (torch.randn(s, generator=gen) for s in shapes)
-    q = q * q_scale
-    q, k, v, g = (t.to(cuda_device, getattr(torch, dtype)) for t in (q, k, v, g))
+    causal, window, cap = case[5:8]
+    q, k, v, g = _flash_bwd_inputs(case, dtype, cuda_device)
     grads = []
     for fn in (flash_kernel.flash_attention, ref.flash_attention_ref):
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -421,3 +431,20 @@ def test_flash_backward_matches_plain_on_card(case, dtype, cuda_device):
         tol = (2.0 ** -16 * top if dtype == "float32"
                else 4 * 2.0 ** (math.floor(math.log2(top)) - 7))
         assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_backward_is_deterministic_on_card(dtype, cuda_device):
+    """Two backward calls on the same inputs give the same bits (no atomics;
+    the training replay relies on it)."""
+    case = FLASH_BWD_CASES[-1]
+    causal, window, cap = case[5:8]
+    q, k, v, g = _flash_bwd_inputs(case, dtype, cuda_device)
+    out, lse = flash_kernel._forward(q, k, v, causal, window, cap, with_lse=True)
+    first, second = (flash_kernel.flash_attention_backward(q, k, v, out, lse, g, causal=causal,
+                                                          window=window, softcap=cap)
+                     for _ in range(2))
+    bits = torch.int16 if dtype == "bfloat16" else torch.int32
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(bits), b.view(bits))
