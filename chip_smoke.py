@@ -37,7 +37,10 @@ Phases (any failure exits nonzero):
     a call: the device rows of two agreeing traces for the plain stereo
     versions and the plain flash (hundreds to thousands of launches a
     call: XLA's exp and FMAs in float64 steps), CUDA events around calls
-    queued behind a spin kernel for SDPA and the plain versions of a few);
+    queued behind a spin kernel for SDPA and the plain versions of a few;
+    a plain version is timed only in the case the summary's line shows,
+    SHOWN: ``dense_profile.py --plain`` and ``flash_profile.py --plain``
+    time it at the other shapes);
     flash attention at qwen2.5-32b's width against its plain version, with
     ``F.scaled_dot_product_attention``'s time, and how many of its outputs
     lie outside FLASH_TOL of the plain version, beside it as a yardstick;
@@ -192,7 +195,25 @@ Phases (any failure exits nonzero):
     give the same loss bit for bit; step times, tokens/s, memory, flash
     forward and backward launches (16 a step each) and one profiled step;
     then ``python -m repro_torch.launch.train`` once on the card;
-20. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
+20. the mesh: a world-1 NCCL group (a FileStore under build/) and a (1, 1)
+    ("data", "model") DeviceMesh on the card, the rules of ``make_rules``:
+    phase 19's 8-layer yi-9b at full widths, one ``Trainer`` step on phase
+    19's first batch and seed without the mesh, then the same step with the
+    parameters and AdamW moments laid out by ``shard_model`` under
+    ``use_mesh`` and ``use_rules`` (both flash kernels launched on the
+    DTensors' local shards): loss, metrics and every parameter after the step
+    and AdamW moments bit-equal (the step's rate is not 0: no warmup); the
+    step's device time (profiler) with and without the mesh;
+    ``elastic_reshard`` of the trained parameters onto a (1, 1, 1) ("pod",
+    "data", "model") mesh, a checkpoint of them and ``restore(sharding_tree=
+    ...)`` onto that mesh, every leaf bit-equal in the placements its rules
+    give; then phase 11's yi-9b (48 layers) through ``ServeEngine`` on its
+    first wave (prompts cut to MESH_PROMPT tokens) for MESH_NEW tokens without
+    and under the mesh: every decode
+    step's logits bit-equal, the tokens equal, flash launched once per layer
+    per step, and the DTensor dispatch overhead per decode step (host clock);
+    the phase's wall time;
+21. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
 
 Each phase prints how far into the run it starts.
 
@@ -477,6 +498,15 @@ TRAIN_MICROBATCHES = 2
 TRAIN_STEPS = 6
 TRAIN_CKPT_EVERY = 2
 TRAIN_FAIL_AT = 3
+# The case of each kernel that the summary's JSON line shows, and the only one
+# whose plain version phase 3 times (the stereo kernels' elas-kitti frame; the
+# backward's is phase 19's training shape).
+SHOWN = {"flash_attention": f"yi-9b decode bfloat16 Skv={FLASH_DECODE[-1][3]}"}
+# The mesh phase (20): yi-9b's serving wave under the mesh, phase 11's first
+# wave with each prompt cut to its first MESH_PROMPT tokens, runs MESH_NEW new
+# tokens (each decode step dispatches every operation through DTensor).
+MESH_PROMPT = 4
+MESH_NEW = 4
 
 
 def main() -> int:
@@ -714,6 +744,22 @@ def main() -> int:
         results[(kernel, label)] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                         bound_ms=b_ms, bound_by=b_by, library_ms=library)
 
+    # Phase 3 checks every case against the plain version, but times the
+    # plain version only in the case the summary's line shows (SHOWN);
+    # dense_profile.py --plain and flash_profile.py --plain time it at every
+    # other shape.
+    def plain_timed(kernel, label, timer, fn, reps, what):
+        """(device ms, ms a call) of the plain version by ``timer``, or
+        (None, None) where this case's is not timed here."""
+        if label != SHOWN.get(kernel, "elas-kitti"):
+            return None, None
+        return timer(fn, reps, what)
+
+    def plain_text(plain, plain_call, script) -> str:
+        if plain is None:
+            return f"plain not timed here ({script} --plain)"
+        return f"plain {plain:.4f} ms device ({plain_call:.4f} ms a call)"
+
     # ---- 3. kernels against their plain versions ----------------------------
     phase_starts(3)
     # The dense energy's exp and log: the card's sequence against the plain
@@ -778,12 +824,13 @@ def main() -> int:
         b_ms, b_by = bound(nbytes, pairs * (OPS_SAD + OPS_INSERT4))
         ms, call = kernel_ms(lambda: support_kernel.support_match(rows_l, rows_r, **kw),
                              "support_match_kernel", 50)
-        plain, plain_call = traced_ms(
+        plain, plain_call = plain_timed(
+            "support_match", label, traced_ms,
             lambda: ref.support_match_rows_streaming(rows_l, rows_r, **kw), 1, "plain support")
         print(f"kernel support_match {label} rows {tuple(rows_l.shape)} D={p.num_disp}: "
               f"mismatches {mism} of {got.numel()}, max_abs_err {err}, kernel {ms:.4f} ms "
-              f"(per call {call:.4f} ms), plain {plain:.3f} ms device "
-              f"({plain_call:.3f} ms a call), bound {b_ms:.5f} ms ({b_by}; {nbytes} B, "
+              f"(per call {call:.4f} ms), {plain_text(plain, plain_call, 'dense_profile.py')}, "
+              f"bound {b_ms:.5f} ms ({b_by}; {nbytes} B, "
               f"{pairs} (column, d) pairs) {card}")
         if mism:
             raise AssertionError(f"support kernel disagrees with its plain version ({label})")
@@ -903,10 +950,11 @@ def main() -> int:
                                    + 2 * h * w * p.num_disp * OPS_MASK)
             ms, call = kernel_ms(lambda: dense_kernel.dense_match_stream(*args, **kw),
                                  "dense_match_stream_kernel", 20)
-            plain, plain_call = traced_ms(lambda: ref.dense_match_rows_stream_ref(*args, **kw),
-                                          1, "plain stream dense")
-            line += (f", kernel {ms:.4f} ms (per call {call:.4f} ms), plain {plain:.3f} ms "
-                     f"device ({plain_call:.3f} ms a call), "
+            plain, plain_call = plain_timed(
+                "dense_match_stream", label, traced_ms,
+                lambda: ref.dense_match_rows_stream_ref(*args, **kw), 1, "plain stream dense")
+            line += (f", kernel {ms:.4f} ms (per call {call:.4f} ms), "
+                     f"{plain_text(plain, plain_call, 'dense_profile.py')}, "
                      f"bound {b_ms:.5f} ms ({b_by}; {nbytes} B, {cands} candidates of "
                      f"{2 * h * w * p.num_disp}; the scan's bound, a mask test per "
                      f"(pixel, d, view), {old_ms:.5f} ms, {old_by})")
@@ -933,10 +981,11 @@ def main() -> int:
                                    + 2 * h * w * c * OPS_SLOT)
             ms, call = kernel_ms(lambda: dense_kernel.dense_match_candidates(*args, **kw),
                                  "dense_match_windowed_kernel", 20)
-            plain, plain_call = traced_ms(
+            plain, plain_call = plain_timed(
+                "dense_match_windowed", label, traced_ms,
                 lambda: ref.dense_match_rows_windowed_ref(*args, **kw), 1, "plain windowed dense")
-            line += (f", kernel {ms:.4f} ms (per call {call:.4f} ms), plain {plain:.3f} ms "
-                     f"device ({plain_call:.3f} ms a call), "
+            line += (f", kernel {ms:.4f} ms (per call {call:.4f} ms), "
+                     f"{plain_text(plain, plain_call, 'dense_profile.py')}, "
                      f"bound {b_ms:.5f} ms ({b_by}; {nbytes} B, {distinct} distinct in-image "
                      f"values in {inside} in-image slots of {2 * h * w * c}; the slots' "
                      f"bound, an energy per in-image slot, {old_ms:.5f} ms, {old_by})")
@@ -991,13 +1040,15 @@ def main() -> int:
         nbytes = n * imgs.element_size() + 2 * n
         b_ms, b_by = bound(nbytes, n * OPS_SOBEL)
         ms, call = kernel_ms(lambda: sobel_kernel.sobel(imgs), "sobel_kernel", 50)
-        plain, plain_call = queued_ms(
+        plain, plain_call = plain_timed(
+            "sobel", label, queued_ms,
             lambda: ref.sobel_rows_ref(*ref.edge_row_views(imgs.to(torch.int32))), 10,
             "plain sobel")
         print(f"kernel sobel {label} both views {tuple(imgs.shape)} {imgs.dtype}: mismatches "
               f"{mism} of {2 * n}, max_abs_err {err}, kernel {ms:.4f} ms (per call {call:.4f} ms, "
-              f"the wrapper's host work included), plain {plain:.3f} "
-              f"ms device ({plain_call:.3f} ms a call), bound {b_ms:.5f} ms ({b_by}; {nbytes} B, "
+              f"the wrapper's host work included), "
+              f"{plain_text(plain, plain_call, 'dense_profile.py')}, bound {b_ms:.5f} ms ({b_by}; "
+              f"{nbytes} B, "
               f"{imgs.dtype} in, int8 out) {card}")
         if mism:
             raise AssertionError(f"sobel kernel disagrees with its plain version ({label})")
@@ -1019,13 +1070,13 @@ def main() -> int:
         nbytes = 8 * n
         b_ms, b_by = bound(nbytes, n * OPS_MEDIAN)
         ms, call = kernel_ms(lambda: median_kernel.median3x3(d), "median3x3_kernel", 50)
-        plain, plain_call = queued_ms(lambda: ref.median3x3_rows_ref(*ref.edge_row_views(d)), 10,
-                                      "plain median")
+        plain, plain_call = plain_timed(
+            "median3x3", label, queued_ms,
+            lambda: ref.median3x3_rows_ref(*ref.edge_row_views(d)), 10, "plain median")
         print(f"kernel median3x3 {label} {tuple(d.shape)} ({invalid} invalid pixels): "
               f"mismatches {mism} of {n}, max_abs_err {err}, kernel {ms:.4f} ms (per call "
-              f"{call:.4f} ms), plain "
-              f"{plain:.3f} ms device ({plain_call:.3f} ms a call), bound {b_ms:.5f} ms ({b_by}; "
-              f"{nbytes} B) {card}")
+              f"{call:.4f} ms), {plain_text(plain, plain_call, 'dense_profile.py')}, bound "
+              f"{b_ms:.5f} ms ({b_by}; {nbytes} B) {card}")
         if mism or invalid == 0:
             raise AssertionError(f"median kernel disagrees, or no invalid pixel ({label})")
         record("median3x3", label, err, ms, plain, b_ms, b_by)
@@ -1189,9 +1240,10 @@ def main() -> int:
             old_ms, old_by = bound(nbytes, cands * (OPS_SAD + OPS_WARM_ENERGY))
             ms, call = kernel_ms(lambda: dense_kernel.dense_match_warm(*args, **kw),
                                  "dense_match_warm_kernel", 20)
-            plain, plain_call = traced_ms(lambda: warm_plain(args, kw), 1, "plain warm dense")
-            line += (f", kernel {ms:.4f} ms (per call {call:.4f} ms), plain {plain:.3f} ms "
-                     f"device ({plain_call:.3f} ms a call), "
+            plain, plain_call = plain_timed("dense_match_warm", label, traced_ms,
+                                            lambda: warm_plain(args, kw), 1, "plain warm dense")
+            line += (f", kernel {ms:.4f} ms (per call {call:.4f} ms), "
+                     f"{plain_text(plain, plain_call, 'dense_profile.py')}, "
                      f"bound {b_ms:.5f} ms ({b_by}; {nbytes} B, {cands} in-image band "
                      f"candidates of {2 * n * p.num_disp} (pixel, d, view), {cands - shared} "
                      f"distinct SADs; a SAD per candidate: {old_ms:.5f} ms, {old_by})")
@@ -1277,8 +1329,9 @@ def main() -> int:
             "flash_attention_f32_kernel"
         ms, call = kernel_ms(lambda: flash_kernel.flash_attention(q, k, v, causal=causal),
                              symbol, 5)
-        plain, plain_call = traced_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal), 2,
-                                      "plain flash")
+        plain, plain_call = plain_timed(
+            "flash_attention", label, traced_ms,
+            lambda: ref.flash_attention_ref(q, k, v, causal=causal), 2, "plain flash")
         library, library_call = queued_ms(
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal), 10, "SDPA")
         # A yardstick, not a gate: how far SDPA's own output lies from the plain
@@ -1289,8 +1342,8 @@ def main() -> int:
         del want, sdpa
         print(f"kernel flash_attention {label} {FLASH_SHAPE}: {over} of {got.numel()} outside "
               f"atol {atol} + rtol {rtol} x |plain|, max_abs_err {err}, kernel {ms:.4f} ms "
-              f"(per call {call:.4f} ms), plain {plain:.3f} ms device ({plain_call:.3f} ms a "
-              f"call), scaled_dot_product_attention {library:.4f} ms device ({library_call:.4f} "
+              f"(per call {call:.4f} ms), {plain_text(plain, plain_call, 'flash_profile.py')}, "
+              f"scaled_dot_product_attention {library:.4f} ms device ({library_call:.4f} "
               f"ms a call; {sdpa_over} of {got.numel()} outside the same tolerance), "
               f"bound {b_ms:.5f} ms ({b_by}; {nbytes} B, {ops} flops at "
               f"{FLASH_PEAK_FLOPS[dname] / 1e12:g} TFLOP/s) {card}")
@@ -1341,14 +1394,16 @@ def main() -> int:
             gqa_ms = max(gqa_bytes / PEAK_BYTES_PER_S * 1e3, t_ops)
             ms, call = kernel_ms(lambda: flash_kernel.flash_attention(q, k, v, causal=causal),
                                  "flash_attention_bf16_kernel", 200)
-            plain, plain_call = traced_ms(
+            plain, plain_call = plain_timed(
+                "flash_attention", label, traced_ms,
                 lambda: ref.flash_attention_ref(q, k, v, causal=causal), 5, "plain flash")
             library, library_call = queued_ms(
                 lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal), 200, "SDPA")
             sdpa_rows = traced_rows(
                 lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal), 10, "SDPA")
-            line += (f", kernel {ms:.4f} ms (per call {call:.4f} ms), plain {plain:.4f} ms "
-                     f"device ({plain_call:.4f} ms a call), scaled_dot_product_attention "
+            line += (f", kernel {ms:.4f} ms (per call {call:.4f} ms), "
+                     f"{plain_text(plain, plain_call, 'flash_profile.py')}, "
+                     f"scaled_dot_product_attention "
                      f"{library:.4f} ms device ({library_call:.4f} ms a call; kernels "
                      f"{sorted({r[2][:60] for r in sdpa_rows})}), bound {b_ms:.6f} ms ({b_by}; "
                      f"{nbytes} B, {ops} flops); the path's bound with {kv_heads} KV heads "
@@ -1432,15 +1487,16 @@ def main() -> int:
         reps = 200 if sq == 1 else 5
         ms, call = kernel_ms(lambda: flash_kernel.flash_attention(q, k, v, **opts),
                              "flash_attention_bf16_kernel", reps)
-        plain, plain_call = traced_ms(lambda: ref.flash_attention_ref(q, k, v, **opts),
-                                      5 if sq == 1 else 1, "plain flash")
+        plain, plain_call = plain_timed(
+            "flash_attention", label, traced_ms, lambda: ref.flash_attention_ref(q, k, v, **opts),
+            5 if sq == 1 else 1, "plain flash")
         library, lib_over, note = flex_yardstick(q, k, v, causal, window, GEMMA2_SOFTCAP, want,
                                                  atol, rtol)
         line = (f"kernel flash_attention {label} {shape} causal={causal} window={window} "
                 f"softcap={GEMMA2_SOFTCAP} (|scaled score| up to {scores:.1f}): {over} of "
                 f"{got.numel()} outside atol {atol} + rtol {rtol} x |plain|, max_abs_err {err}, "
-                f"kernel {ms:.4f} ms (per call {call:.4f} ms), plain {plain:.4f} ms device "
-                f"({plain_call:.4f} ms a call), flex_attention "
+                f"kernel {ms:.4f} ms (per call {call:.4f} ms), "
+                f"{plain_text(plain, plain_call, 'flash_profile.py')}, flex_attention "
                 + (f"{library:.4f} ms device ({lib_over} of {got.numel()} outside the same "
                    f"tolerance; {note})" if library is not None else f"not measured ({note})")
                 + f", bound {b_ms:.6f} ms ({b_by}; {pairs} visible pairs a head, {ops} flops, "
@@ -2930,10 +2986,276 @@ def main() -> int:
           f"rc {rc} in {time.perf_counter() - t0:.1f} s, flash forward "
           f"{ran['flash_attention']} and backward {ran['flash_attention_bwd']} launches {card}")
 
-    # ---- 20. summary -------------------------------------------------------
+    # ---- 20. the mesh ------------------------------------------------------
+    # Trainer and ServeEngine under a DeviceMesh over the card.  On a mesh of
+    # one device every local operation sees the whole tensor, so every result
+    # must equal the same run without the mesh bit for bit; the two flash
+    # kernels run through local_map on the DTensors' local shards.
     phase_starts(20)
-    shown = {"flash_attention": f"yi-9b decode bfloat16 Skv={FLASH_DECODE[-1][3]}",
-             "flash_attention_bwd": train_label}
+    t_mesh = time.perf_counter()
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_mesh, make_rules
+    from repro_torch.models.model import shard_model
+    from repro_torch.runtime.fault_tolerance import elastic_reshard
+
+    store = ROOT / "build" / "mesh-store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1), rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+
+        def shown(rules_):
+            return {kk: vv for kk, vv in dataclasses.asdict(rules_).items() if vv is not None}
+
+        retraced_s = []
+
+        def traced_step(label, fn):
+            """(fn's result, the device rows of a trace of one call, that call's
+            wall ms under the profiler).  The trace records the device's
+            activity only: recording a DTensor step's host operations as well
+            took seconds a trace."""
+            box = {}
+
+            def call():
+                box.clear()
+                t0 = time.perf_counter()
+                box["out"] = fn()
+                box["ms"] = (time.perf_counter() - t0) * 1e3
+
+            rows = traced_rows(call, 1, label)
+            return box["out"], rows, box["ms"]
+
+        def settled_ms(label, fn, rows, wall_ms):
+            """The device busy ms of one call of ``fn``, from ``rows`` (a trace of
+            one call) and traces of more calls, their results dropped, and the
+            wall ms under the profiler of the first call and of the last.  A
+            trace can lose records, so calls are traced until two traces agree
+            on the device operations within one in a hundred, the fuller giving
+            the busy time; the run fails after five more that do not."""
+            t0, first_ms = time.perf_counter(), wall_ms
+            for _ in range(5):
+                _, again, wall_ms = traced_step(f"{label} (again)", fn)
+                ops = [sum(r[1] for r in t) for t in (rows, again)]
+                agree = abs(ops[0] - ops[1]) <= max(ops) // 100
+                if ops[1] > ops[0]:
+                    rows = again
+                if agree:
+                    retraced_s.append(time.perf_counter() - t0)
+                    return sum(r[0] for r in rows) / 1e3, first_ms, wall_ms
+            raise AssertionError(f"{label}: no two traces agree on the device operations")
+
+        # (a) one Trainer step of phase 19's model, batch and seed
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+        rules = make_rules(cfg, mesh, global_batch=TRAIN_BATCH, shape_name="train_4k")
+        pipe = pipeline_for(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+        batch = pipe.batch_at(0)
+        model = LMModel(cfg)
+        trainer = Trainer(
+            model, pipe,
+            TrainConfig(num_steps=1, microbatches=TRAIN_MICROBATCHES, log_every=1, seed=0,
+                        ckpt_dir=str(ROOT / "build" / "ckpt-mesh")),
+            opt_cfg=AdamWConfig(),
+            # no warmup: the step's rate is not 0, so it moves every weight
+            sched_cfg=ScheduleConfig(peak_lr=3e-4, warmup_steps=0, total_steps=TRAIN_STEPS))
+
+        def one_step():
+            state = trainer.init_state()
+            params, opt, metrics = trainer.step_fn(state["params"], state["opt"], batch)
+            torch.cuda.synchronize()
+            return params, opt, metrics
+
+        # each step starts from init_state, so a step traced again (the
+        # timing's retakes) leaves the model's weights as the first left them
+        label = f"mesh train {cfg.name} step without the mesh"
+        reset_counts()
+        (params, opt, want_metrics), rows, wall_ms = traced_step(label, one_step)
+        want_params = {n: p.detach().clone() for n, p in params.items()}
+        # the moments (15 GB in float32) wait in host memory
+        want_moments = {mm: {n: x.cpu() for n, x in opt[mm].items()} for mm in ("m", "v")}
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        plain_busy, plain_wall, plain_again = settled_ms(label, one_step, rows, wall_ms)
+        gc.collect()
+        torch.cuda.empty_cache()
+        shard_model(model, mesh, rules)
+        with sharding.use_mesh(mesh), sharding.use_rules(rules):
+            label = f"mesh train {cfg.name} step under the mesh"
+            reset_counts()
+            (params, opt, metrics), rows, wall_ms = traced_step(label, one_step)
+            counts = read_counts()
+            per_step = TRAIN_LAYERS * TRAIN_MICROBATCHES
+            expect = {kk: per_step if kk in ("flash_attention", "flash_attention_bwd") else 0
+                      for kk in launches}
+            if counts != expect:
+                raise AssertionError(f"mesh train {cfg.name}: launches {counts}, expected "
+                                     f"{expect}")
+            for kk in launches:
+                launches[kk] += counts[kk]
+            not_dt = [n for n, p in params.items() if not isinstance(p, DTensor)]
+            if not_dt:
+                raise AssertionError(f"mesh train {cfg.name}: parameters not DTensors: "
+                                     f"{not_dt[:4]}")
+            moved = [n for n, p in params.items()
+                     if not torch.equal(p.full_tensor(), want_params[n])]
+            moved += [f"{mm} {n}" for mm in ("m", "v") for n, x in opt[mm].items()
+                      if not isinstance(x, DTensor)
+                      or not torch.equal(x.full_tensor(), want_moments[mm][n].to(dev))]
+            bad_metrics = [kk for kk, vv in want_metrics.items()
+                           if not torch.equal(sharding.full(metrics[kk]), sharding.full(vv))]
+            if moved or bad_metrics:
+                raise AssertionError(f"mesh train {cfg.name}: under the mesh {len(moved)} "
+                                     f"parameters or moments differ ({moved[:4]}), metrics "
+                                     f"{bad_metrics}")
+            del params, opt, want_moments
+            gc.collect()
+            torch.cuda.empty_cache()
+            mesh_busy, mesh_wall, mesh_again = settled_ms(label, one_step, rows, wall_ms)
+        print(f"mesh train {cfg.name} ({TRAIN_LAYERS} layers, global batch {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} in {TRAIN_MICROBATCHES} microbatches) on a (1, 1) ('data', 'model') "
+              f"mesh, rules {shown(rules)}: loss {float(sharding.full(metrics['loss'])):.6f}, "
+              f"ce, grad norm, rate {float(sharding.full(metrics['lr'])):.3g} and all "
+              f"{len(want_params)} parameters and their AdamW moments after the step equal to "
+              f"the step without the mesh bit for bit; flash forward {counts['flash_attention']} and "
+              f"backward {counts['flash_attention_bwd']} launches on local shards; the step's "
+              f"device busy time {mesh_busy:.2f} ms under the mesh against {plain_busy:.2f} ms "
+              f"without; wall under the profiler {mesh_wall:.1f} ms under the mesh against "
+              f"{plain_wall:.1f} without, the same step traced again {mesh_again:.1f} against "
+              f"{plain_again:.1f} {card}")
+
+        # (b) elastic_reshard onto a (1, 1, 1) mesh, a checkpoint, a resharded restore
+        t_reshard = time.perf_counter()
+        mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"))
+        rules3 = make_rules(cfg, mesh3, global_batch=TRAIN_BATCH, shape_name="train_4k")
+        specs = model.param_specs()
+        trained = dict(model.named_parameters())
+        del metrics, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        resharded = elastic_reshard(trained, specs, mesh3, rules3)
+
+        def check_laid_out(tree, what):
+            for n, x in tree.items():
+                want = sharding.spec_to_placements(
+                    sharding.logical_to_spec(specs[n], rules3, mesh3), mesh3)
+                if (not isinstance(x, DTensor) or x.device_mesh != mesh3
+                        or tuple(x.placements) != want
+                        or not torch.equal(x.full_tensor(), want_params[n])):
+                    raise AssertionError(f"mesh {what}: {n} is not the trained parameter laid "
+                                         f"out as {want}")
+
+        check_laid_out(resharded, "elastic_reshard")
+        ckpt_dir = ROOT / "build" / "ckpt-mesh"
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        ckpt = CheckpointManager(str(ckpt_dir), keep=1)
+        t0 = time.perf_counter()
+        ckpt.save(1, {"params": resharded}, blocking=True)
+        t_save = time.perf_counter() - t0
+        with sharding.use_rules(rules3):
+            named = {n: sharding.named_sharding(mesh3, *axes) for n, axes in specs.items()}
+        t0 = time.perf_counter()
+        step, restored = ckpt.restore({"params": resharded}, device=dev,
+                                      sharding_tree={"params": named})
+        t_restore = time.perf_counter() - t0
+        check_laid_out(restored["params"], "restore(sharding_tree=...)")
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        print(f"mesh elastic_reshard of the {len(specs)} trained parameters onto a (1, 1, 1) "
+              f"('pod', 'data', 'model') mesh, rules {shown(rules3)}, then a checkpoint of them "
+              f"({t_save:.1f} s) and restore(sharding_tree=...) onto that mesh ({t_restore:.1f} "
+              f"s): every leaf bit-equal, in the placements its rules give {card}")
+        del model, pipe, batch, trained, resharded, restored, want_params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) phase 11's yi-9b through ServeEngine on its first wave
+        t_serve = time.perf_counter()
+        cfg = get_config("yi-9b")
+        n_attn = sum(kk in attention_mod.ATTN_KINDS for kk in cfg.layer_kinds)
+        model = LMModel(cfg).init(0)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, size=rng.integers(4, LM_PROMPT_LEN + 1))
+                   for _ in range(LM_REQUESTS)][:LM_BATCH]
+        prompts = [pr[:MESH_PROMPT] for pr in prompts]
+        steps = max(len(pr) + MESH_NEW - 1 for pr in prompts)
+        apply = model.apply
+        logits_seen, step_s = [], []
+
+        def recording_apply(*args, **kwargs):
+            out = apply(*args, **kwargs)
+            logits_seen.append(sharding.full(out[0]).clone())
+            return out
+
+        def timed_step(model_, caches, tokens):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = decode_step(model_, caches, tokens)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return out
+
+        def serve():
+            logits_seen.clear()
+            step_s.clear()
+            model.apply = recording_apply
+            engine_mod.decode_step = timed_step
+            try:
+                return ServeEngine(model, batch=LM_BATCH, max_len=LM_MAX_LEN).generate(
+                    prompts, MESH_NEW)
+            finally:
+                engine_mod.decode_step = decode_step
+                del model.apply
+
+        want_tokens = serve()
+        want_logits, plain_steps = list(logits_seen), list(step_s)
+        rules_s = make_rules(cfg, mesh, global_batch=LM_BATCH, shape_name="decode_32k")
+        shard_model(model, mesh, rules_s)
+        with sharding.use_mesh(mesh), sharding.use_rules(rules_s):
+            reset_counts()
+            tokens_ = serve()
+            counts = read_counts()
+        expect = {kk: n_attn * steps if kk == "flash_attention" else 0 for kk in launches}
+        if counts != expect:
+            raise AssertionError(f"mesh serve {cfg.name}: launches {counts} in {steps} decode "
+                                 f"steps, expected {expect}")
+        for kk in launches:
+            launches[kk] += counts[kk]
+        differ = [i for i, (g, w) in enumerate(zip(logits_seen, want_logits))
+                  if not torch.equal(g, w)]
+        if tokens_ != want_tokens or len(logits_seen) != steps or differ:
+            raise AssertionError(f"mesh serve {cfg.name}: tokens {tokens_} against {want_tokens}, "
+                                 f"{len(logits_seen)} steps, logits differ at steps {differ}")
+        over = median_of(step_s) - median_of(plain_steps)
+        print(f"mesh serve {cfg.name} ({cfg.num_layers} layers) through ServeEngine(batch="
+              f"{LM_BATCH}, max_len={LM_MAX_LEN}) on phase 11's first wave, {MESH_NEW} new "
+              f"tokens, {steps} decode steps, under the (1, 1) mesh with rules {shown(rules_s)}: "
+              f"every step's logits equal to the run without the mesh bit for bit, tokens "
+              f"equal, flash {counts['flash_attention']} launches on local shards; a decode "
+              f"step (host clock, synchronised) median {1e3 * median_of(step_s):.2f} ms under "
+              f"the mesh against {1e3 * median_of(plain_steps):.2f} ms without: DTensor "
+              f"dispatch overhead {1e3 * over:.2f} ms a step ({1e3 * over / n_attn:.3f} ms a "
+              f"layer) {card}")
+        del model, want_logits
+        logits_seen.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    t_end = time.perf_counter()
+    print(f"mesh phase: {t_end - t_mesh:.1f} s wall (the training step without and under the "
+          f"mesh {t_reshard - t_mesh:.1f} s, {sum(retraced_s):.1f} s of it steps traced again; "
+          f"reshard, checkpoint and restore {t_serve - t_reshard:.1f} s; serving "
+          f"{t_end - t_serve:.1f} s) {card}")
+
+    # ---- 21. summary -------------------------------------------------------
+    phase_starts(21)
+    shown = {**SHOWN, "flash_attention_bwd": train_label}
     entries = []
     for kname, _, _, source, replaces in kernels:
         if launches[kname] == 0:

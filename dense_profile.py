@@ -3,6 +3,7 @@
 
     python3 dense_profile.py [--rounds N] [--reps N] [--sass-of PARENT_SUPPORT_CU]
                              [--median-of PARENT_MEDIAN_CU] [--warm-of PARENT_WARM_CU]
+    python3 dense_profile.py --plain
 
 For ``elas-kitti`` and ``elas-tsukuba`` (seed 0) it prepares one frame's
 inputs on the card, builds variants of
@@ -62,8 +63,14 @@ count over the warp's busiest lane's), the warm band's candidates and the
 share of right-view ones whose SAD the left view also needs, and, from
 ``cuobjdump -sass`` of the support library (and of ``--sass-of``, e.g. a
 parent commit's source), the instructions of each loop that computes SADs,
-per (column, d) pair.  Each
-line carries the card's name and power limit.  Imports nothing of JAX.
+per (column, d) pair.  With ``--plain`` it builds no variant and times
+instead the plain version of each kernel (``kernels/ref.py``: support,
+stream and windowed dense, Sobel, median, warm band) on each config's frame,
+the device time of a call: every device row of a torch.profiler trace of
+``PLAIN_REPS`` calls over the calls, from two traces whose device
+operations agree within one in a hundred (``flash_profile.traced_device_ms``;
+``chip_smoke.py`` times them only at elas-kitti).  Each line carries the card's name and power limit.
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -76,6 +83,8 @@ from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# calls of a plain version in one traced timing (--plain)
+PLAIN_REPS = 1
 
 STUB = ('#include "xla_math.cuh"\n', '#include "xla_math.cuh"\n'
         'namespace ielas {\n'
@@ -315,6 +324,8 @@ def main() -> int:
                     help="another median.cu (e.g. a parent's) to time beside the median")
     ap.add_argument("--warm-of", default=None,
                     help="another dense_match_warm.cu (e.g. a parent's) to time beside it")
+    ap.add_argument("--plain", action="store_true",
+                    help="time the kernels' plain versions instead of the variants")
     args = ap.parse_args()
 
     import torch
@@ -324,6 +335,7 @@ def main() -> int:
         return 1
 
     sys.path.insert(0, str(ROOT / "src"))
+    from flash_profile import traced_device_ms
     from repro_torch.configs.elas_stereo import KITTI, TSUKUBA
     from repro_torch.core import pipeline
     from repro_torch.core.dense import candidate_bitmask_rows, candidate_set
@@ -355,7 +367,7 @@ def main() -> int:
         return proc, so
 
     jobs = {}
-    for src, table in VARIANTS.items():
+    for src, table in ({} if args.plain else VARIANTS).items():
         for label, subs in table.items():
             text = (_build.CSRC / f"{src}.cu").read_text()
             for old, new in subs:
@@ -381,7 +393,7 @@ def main() -> int:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {key}:\n{log}")
         libs[key] = so
-    for key, so in (("as built", libs[("support_match", "as built")]),
+    for key, so in (("as built", libs.get(("support_match", "as built"))),
                     (args.sass_of, libs.get(("sass-of", "")))):
         if so is not None:
             for line in sad_loops(so):
@@ -492,6 +504,21 @@ def main() -> int:
         print(f"{cfg.name} warm band 8: {left} left and {right} right candidates, {shared} "
               f"right ones ({shared / max(right, 1):.4f}) sharing the left view's SAD, "
               f"{left + right - shared} distinct SADs {card}")
+
+        if args.plain:
+            plain = {
+                "support_match": lambda: ref.support_match_rows_streaming(*rows, **supkw),
+                "dense_match_stream": lambda: ref.dense_match_rows_stream_ref(*sargs, **skw),
+                "dense_match_windowed": lambda: ref.dense_match_rows_windowed_ref(*wargs, **wkw),
+                "sobel": lambda: ref.sobel_rows_ref(*ref.edge_row_views(views.to(torch.int32))),
+                "median3x3": lambda: ref.median3x3_rows_ref(*ref.edge_row_views(med_in)),
+                "dense_match_warm": lambda: ref.dense_match_rows_warm_ref(*warm_args, **warm_kw),
+            }
+            for name, fn in plain.items():
+                ms = traced_device_ms(torch, fn, PLAIN_REPS, f"the plain {name}")
+                print(f"{cfg.name} plain {name}: {ms:.4f} ms device a call (torch.profiler, "
+                      f"{PLAIN_REPS} calls) {card}", flush=True)
+            continue
 
         def current() -> int:
             return torch.cuda.current_stream().cuda_stream

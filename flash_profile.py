@@ -5,6 +5,7 @@
     python3 flash_profile.py --parent build/parent_flash.cu [--rounds 3] [--reps 50]
     git show COMMIT:src/repro_torch/kernels/csrc/flash_attention_bwd.cu > build/parent_bwd.cu
     python3 flash_profile.py --bwd-parent build/parent_bwd.cu [--parent ...]
+    python3 flash_profile.py --plain
 
 Card only.  Builds ``src/repro_torch/kernels/csrc/flash_attention.cu`` and
 the given source with the port's nvcc flags into ``build/flash_profile/``
@@ -30,9 +31,16 @@ stops there.  Then the
 softcap rows' accuracy at two q scales (12 and 30): the bfloat16 kernel's
 outputs outside one bfloat16 ulp of the plain version (chip_smoke.py's
 FLASH_TOL), and, in float32, the kernel's and the plain version's largest
-distance from a float64 softmax on one head.  Every line carries the
-card's name and power limit.  Imports nothing of JAX and nothing of
-``repro``.
+distance from a float64 softmax on one head.  With ``--plain`` it first
+times the plain version (``kernels/ref.py::flash_attention_ref``) at every
+flash shape of ``PERF.md``'s kernel table (PLAIN_SHAPES: those above, jamba's
+and the stub frontends' serving shapes, gemma2's with its softcap), the
+device time of a call: every device row of a torch.profiler trace of
+``PLAIN_REPS`` calls over the calls, from two traces whose device
+operations agree within one in a hundred (``chip_smoke.py`` times it only
+at yi-9b's decode); without ``--parent`` or ``--bwd-parent`` it stops
+there.  Every line carries the card's name and power limit.  Imports
+nothing of JAX and nothing of ``repro``.
 """
 from __future__ import annotations
 
@@ -46,6 +54,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "flash_profile"
+# calls of the plain version in one traced timing (--plain)
+PLAIN_REPS = 2
 # (label, (B, H, Sq, Skv, D), dtype name, causal)
 SHAPES = [
     ("qwen2.5-32b bfloat16 causal", (1, 40, 4096, 4096, 128), "bfloat16", True),
@@ -63,6 +73,47 @@ GEMMA2 = [
     ("gemma2-27b global S=8192", (1, 32, 8192, 8192, 128), True, 0),
 ]
 
+# The plain version's shapes: (label, (B, H, Sq, Skv, D), causal, window,
+# softcap, q scale), bfloat16 unless the label says float32.
+PLAIN_SHAPES = [(label, shape, causal, 0, 0.0, 1.0) for label, shape, _, causal in SHAPES] + [
+    ("jamba-1.5-large-398b decode Skv=31", (4, 64, 1, 31, 128), False, 0, 0.0, 1.0),
+    ("qwen2-vl-7b prefill", (4, 28, 256, 256, 128), True, 0, 0.0, 1.0),
+    ("qwen2-vl-7b decode Skv=272", (4, 28, 1, 272, 128), False, 0, 0.0, 1.0),
+    ("musicgen-large prefill", (4, 32, 64, 64, 64), True, 0, 0.0, 1.0),
+    ("musicgen-large decode Skv=80", (4, 32, 1, 80, 64), False, 0, 0.0, 1.0),
+] + [(label, shape, causal, window, 50.0, 30.0) for label, shape, causal, window in GEMMA2]
+
+
+def traced_device_ms(torch, fn, reps: int, what: str) -> float:
+    """The device time of one call of ``fn``: every device row of a
+    torch.profiler trace of ``reps`` calls, summed, over ``reps``.  A trace
+    can lose records, so two are taken and count only when their device
+    operations agree within one in a hundred (the fuller one gives the
+    time); taken again up to five times, then it raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def rows():
+        for _ in range(20):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            found = [(e.self_device_time_total, e.count) for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if found:
+                return found
+        raise AssertionError(f"twenty traces of {what} caught no device activity")
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        traces = [rows(), rows()]
+        ops = [sum(n for _, n in t) for t in traces]
+        if abs(ops[0] - ops[1]) <= max(ops) // 100:
+            return sum(t for t, _ in traces[ops.index(max(ops))]) / reps / 1e3
+    raise AssertionError(f"five pairs of traces of {what} disagree")
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -70,11 +121,13 @@ def main() -> int:
     ap.add_argument("--bwd-parent", action="append", default=[],
                     help="another flash_attention_bwd.cu to time the backward against "
                          "(repeatable)")
+    ap.add_argument("--plain", action="store_true",
+                    help="time the plain version at PLAIN_SHAPES first")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args()
-    if not args.parent and not args.bwd_parent:
-        ap.error("give --parent, --bwd-parent or both")
+    if not (args.parent or args.bwd_parent or args.plain):
+        ap.error("give --parent, --bwd-parent, --plain or more than one")
 
     import torch
 
@@ -108,6 +161,24 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / args.reps
+
+    if args.plain:
+        for label, shape, causal, window, softcap, q_scale in PLAIN_SHAPES:
+            dtype = torch.float32 if "float32" in label else torch.bfloat16
+            b, h, sq, skv, d = shape
+            gen = torch.Generator().manual_seed(0)
+            q, k, v = ((torch.randn((b, h, n, d), generator=gen) * s_).to(dev, dtype)
+                       for n, s_ in ((sq, q_scale), (skv, 1.0), (skv, 1.0)))
+            opts = dict(causal=causal, window=window, softcap=softcap)
+            ms = traced_device_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **opts),
+                                  PLAIN_REPS, f"the plain flash {label}")
+            print(f"plain flash {label} {shape} {str(dtype).removeprefix('torch.')} causal="
+                  f"{causal} window={window} softcap={softcap}: {ms:.4f} ms device a call "
+                  f"(torch.profiler, {PLAIN_REPS} calls) {card}", flush=True)
+            del q, k, v
+            torch.cuda.empty_cache()
+        if not (args.parent or args.bwd_parent):
+            return 0
 
     OUT.mkdir(parents=True, exist_ok=True)
     for parent in args.bwd_parent:

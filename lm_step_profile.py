@@ -40,6 +40,9 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--label", default=None, help="names the tree in the output")
     args = ap.parse_args(argv)
+    if WARMUP + args.steps + 1 > MAX_LEN:
+        ap.error(f"--steps takes at most {MAX_LEN - WARMUP - 1}: the caches hold {MAX_LEN} "
+                 f"positions")
 
     import numpy as np
     import torch

@@ -14,6 +14,11 @@ a score softcap (the reference computes them in plain JAX,
 ``repro/models/attention.py``), so that every attention of the LM path runs
 on it.
 
+Under a mesh: on DTensor inputs (the models under ``use_mesh`` and
+``use_rules``) the call runs through ``local_map``, the kernel (or, on the
+CPU, the plain version) on each rank's local shards, its backward too:
+batch split over the rules' "batch" axes, heads over "heads".
+
 Training: on CUDA tensors that require a gradient (under grad mode) the call
 goes through :class:`_FlashFn`, whose forward launches the same kernel with
 each row's log-sum-exp as a second output and whose backward launches the
@@ -32,6 +37,8 @@ import functools
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import _build, ref
 
@@ -82,6 +89,8 @@ def flash_attention(
     from 0; with ``window > 0`` (causal only) also iff i - j < window, so row
     i sees keys max(0, i - window + 1) .. i.  Masked scores are -1e30, as the
     reference's."""
+    if isinstance(q, DTensor):
+        return _on_mesh(q, k, v, causal, window, softcap)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be (B, H, S, D), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -117,6 +126,31 @@ def flash_attention(
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashFn.apply(q, k, v, causal, window, softcap)
     return _forward(q, k, v, causal, window, softcap, with_lse=False)[0]
+
+
+def _on_mesh(q, k, v, causal: bool, window: int, softcap: float):
+    """:func:`flash_attention` on each rank's local shards of DTensor q, k
+    and v: out split as q, over "batch" and "heads" (the rules' placements
+    of (B, H, S, D)).  The kernel attends each query row over every key of
+    its head, so the sequence dimensions are gathered wherever the rules
+    split them (``seq_kv`` in long decode), and k and v take q's split of
+    the heads (a local slice where the KV heads replicate): explicit
+    redistributes here, which are no-ops where the layouts already agree."""
+    from repro_torch.distributed import sharding
+
+    if not (isinstance(k, DTensor) and isinstance(v, DTensor)):
+        raise TypeError("flash_attention: q is a DTensor, so k and v must be DTensors too")
+    if not sharding.on_mesh():
+        raise ValueError("flash_attention on DTensors needs a mesh and rules in scope "
+                         "(distributed.sharding.use_mesh and use_rules)")
+    mesh = q.device_mesh
+    placements = sharding.logical_placements(("batch", "heads", None, None), mesh=mesh)
+    q, k, v = (t.redistribute(mesh, placements) for t in (q, k, v))
+    local = local_map(functools.partial(flash_attention, causal=causal, window=window,
+                                        softcap=softcap),
+                      out_placements=list(placements), in_placements=(placements,) * 3,
+                      device_mesh=mesh)
+    return local(q, k, v)
 
 
 def _forward(q, k, v, causal: bool, window: int, softcap: float, with_lse: bool):

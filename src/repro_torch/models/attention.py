@@ -61,6 +61,26 @@ def attn_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
+def attn_param_specs(cfg: ModelConfig) -> dict:
+    """Logical axes per parameter, in the port's layout (resolved by the
+    sharding rules).  The reference's ("fsdp", "heads", None) on (d, H, hd)
+    is ("fsdp", "heads") on (d, H*hd): the heads are the major part of the
+    merged dimension, so a heads shard of the matrix is the reshape of the
+    reference's shard.  The FSDP axis rides on d_model (a non-TP dim), so
+    ZeRO-3 and TP compose."""
+    specs = {
+        "wq": ("fsdp", "heads"),
+        "wk": ("fsdp", "kv_heads"),
+        "wv": ("fsdp", "kv_heads"),
+        "wo": ("heads", "fsdp"),
+    }
+    if cfg.qkv_bias:
+        specs["bq"] = ("heads",)
+        specs["bk"] = ("kv_heads",)
+        specs["bv"] = ("kv_heads",)
+    return specs
+
+
 def init_attn_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     """float32 weights in the port's layout, drawn as the reference's: the
     fan-in of ``wo`` (H, hd, d) is H."""
@@ -104,23 +124,30 @@ def _apply_pos(q, k, positions, cfg: ModelConfig):
     return q, k
 
 
-def _expand_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
+def _expand_kv(k: torch.Tensor, num_heads: int, from_cache: bool = False) -> torch.Tensor:
     """(B, S, KV, D) -> (B, H, S, D), contiguous: KV head j serves query
-    heads j*g .. j*g + g - 1 (``jnp.repeat`` on the head axis)."""
+    heads j*g .. j*g + g - 1 (``jnp.repeat`` on the head axis), so a shard
+    of KV heads owns exactly its own expanded heads.  The reference's hint
+    keeps a cache's layout (its sequence on "seq_kv", the expanded heads on
+    "kv_heads") and puts a fresh sequence's on "heads"."""
     k = k.transpose(1, 2)
     kvh = k.shape[1]
     if kvh == num_heads:
         return k.contiguous()
-    return k.repeat_interleave(num_heads // kvh, dim=1)
+    k = k.repeat_interleave(num_heads // kvh, dim=1)
+    if from_cache:
+        return common.with_logical(k, "batch", "kv_heads", "seq_kv", None)
+    return common.with_logical(k, "batch", "heads", "seq", None)
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+            window: int = 0, softcap: float = 0.0, from_cache: bool = False) -> torch.Tensor:
     """q (B, Sq, H, D), k and v (B, Skv, KV, D) in q's dtype -> (B, Sq, H, D)
     through the flash kernel."""
     h = q.shape[2]
-    out = flash_attention(q.transpose(1, 2), _expand_kv(k, h), _expand_kv(v, h), causal=causal,
-                          window=window, softcap=softcap)
+    out = flash_attention(q.transpose(1, 2), _expand_kv(k, h, from_cache),
+                          _expand_kv(v, h, from_cache), causal=causal, window=window,
+                          softcap=softcap)
     return out.transpose(1, 2)
 
 
@@ -155,6 +182,8 @@ def attention_block(
     window = cfg.sliding_window if kind == LayerKind.ATTN_LOCAL else 0
     cap = cfg.attn_softcap
     q, k, v = _project_qkv(params, x, cfg)
+    q = common.with_logical(q, "batch", "seq", "heads", None)
+    k = common.with_logical(k, "batch", "seq", "kv_heads", None)
     q, k = _apply_pos(q, k, positions, cfg)
     b, s = x.shape[:2]
 
@@ -168,7 +197,7 @@ def attention_block(
         cache_insert(cache.k, k, cache.index)
         cache_insert(cache.v, v, cache.index)
         out = _attend(q, cache.k[:, lo:n].to(q.dtype), cache.v[:, lo:n].to(q.dtype),
-                      causal=False, softcap=cap)
+                      causal=False, softcap=cap, from_cache=True)
         new_cache = KVCache(k=cache.k, v=cache.v, index=n)
     elif cache.index == 0:
         # prefill into an empty cache.
@@ -187,7 +216,7 @@ def attention_block(
             f"(ROADMAP.md, queue 3)")
 
     out = out.reshape(b, s, cfg.num_heads * cfg.head_dim) @ params["wo"]
-    return out, new_cache
+    return common.with_logical(out, "batch", "seq", None), new_cache
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,

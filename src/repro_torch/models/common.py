@@ -1,9 +1,6 @@
-"""Shared model primitives: norms, rotary embeddings, softcap and the
-initialisers (counterpart of ``repro/models/common.py``).
-
-The reference's ``with_logical`` attaches a sharding hint that is a no-op on
-one device, so the port has none.
-"""
+"""Shared model primitives: norms, rotary embeddings, softcap, the
+initialisers, and the logical-axis sharding hint (counterpart of
+``repro/models/common.py``)."""
 from __future__ import annotations
 
 import math
@@ -12,7 +9,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import logical_constraint
 from repro_torch.kernels.ref import fma_f32, tanh_f32, xla_tanh_f32
+
+
+# --------------------------------------------------------------------------
+# logical-axis activation sharding
+# --------------------------------------------------------------------------
+def with_logical(x: torch.Tensor, *logical_axes: str | None) -> torch.Tensor:
+    """A logical sharding hint, resolved by ``distributed.sharding`` rules:
+    under a mesh and rules a DTensor is redistributed to the placements they
+    give; otherwise (and on a plain tensor) ``x`` itself, so models run
+    unmodified on a single device."""
+    return logical_constraint(x, logical_axes)
 
 
 # --------------------------------------------------------------------------

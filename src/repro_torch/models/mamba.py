@@ -64,6 +64,21 @@ def mamba_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
             "w_out": (d_in, d)}
 
 
+def mamba_param_specs(cfg: ModelConfig) -> dict:
+    """Logical axes per parameter (the reference's; the same shapes)."""
+    return {
+        "w_in": ("fsdp", "conv_dim"),
+        "conv_w": (None, "conv_dim"),
+        "conv_b": ("conv_dim",),
+        "w_x": ("conv_dim", None),   # (d_in, dt_rank+2N): odd width, replicate
+        "w_dt": (None, "conv_dim"),
+        "dt_bias": ("conv_dim",),
+        "a_log": ("conv_dim", "state"),
+        "d_skip": ("conv_dim",),
+        "w_out": ("conv_dim", "fsdp"),
+    }
+
+
 def init_mamba_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     """float32 weights drawn as the reference's: fan-in truncated normals for
     the projections, ``0.1 * normal`` conv taps, zero conv bias, the dt bias
@@ -159,6 +174,7 @@ def mamba_block(
     b, s, d = x.shape
     d_in = mc.expand * d
     xc, z = torch.chunk(x @ params["w_in"], 2, dim=-1)
+    xc = common.with_logical(xc, "batch", "seq", "conv_dim")
 
     if state is not None and s == 1:
         # decode: the conv over the state's inputs and this one, in float32
@@ -188,7 +204,7 @@ def mamba_block(
 
     y = y + xconv.float() * params["d_skip"]
     y = y.to(dtype) * common.silu(z)
-    return y @ params["w_out"], new_state
+    return common.with_logical(y @ params["w_out"], "batch", "seq", None), new_state
 
 
 def init_mamba_state(cfg: ModelConfig, batch: int, device=None) -> MambaState:

@@ -65,6 +65,26 @@ def mla_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
+def mla_param_specs(cfg: ModelConfig) -> dict:
+    """Logical axes per parameter in the port's layout: the reference's
+    (in, H, k) tensors' ("fsdp", "heads", None) is ("fsdp", "heads") on
+    (in, H*k) and its w_o's ("heads", None, "fsdp") is ("heads", "fsdp")
+    on (H*dv, d), the heads major in each merged dimension."""
+    specs = {
+        "w_dkv": ("fsdp", None),
+        "w_kr": ("fsdp", None),
+        "w_uk": ("fsdp", "heads"),
+        "w_uv": ("fsdp", "heads"),
+        "w_o": ("heads", "fsdp"),
+    }
+    if cfg.mla.q_lora_rank > 0:
+        specs["w_dq"] = ("fsdp", None)
+        specs["w_uq"] = ("fsdp", "heads")
+    else:
+        specs["w_q"] = ("fsdp", "heads")
+    return specs
+
+
 def init_mla_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     """float32 weights in the port's layout, drawn as the reference's: the
     fan-in of ``w_uk``, ``w_uv`` and ``w_uq`` is their first axis (R, or the
@@ -169,7 +189,8 @@ def mla_block(
         q = torch.cat([q_nope, q_rope], dim=-1)
         out = _attend(q, k, v, 0 if cache is None else cache.index)
 
-    return out.reshape(b, s, h * dv) @ params["w_o"], new_cache
+    y = out.reshape(b, s, h * dv) @ params["w_o"]
+    return common.with_logical(y, "batch", "seq", None), new_cache
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,

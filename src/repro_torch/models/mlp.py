@@ -24,11 +24,24 @@ def init_mlp_params(gen: torch.Generator, d_model: int, d_ff: int, act: str,
             for name, shape in mlp_shapes(d_model, d_ff, act).items()}
 
 
+def mlp_param_specs(act: str) -> dict:
+    """Logical axes per parameter (the reference's)."""
+    if act == "gelu_mlp":
+        return {"w_in": ("fsdp", "ffn"), "w_out": ("ffn", "fsdp")}
+    return {
+        "w_gate": ("fsdp", "ffn"),
+        "w_up": ("fsdp", "ffn"),
+        "w_down": ("ffn", "fsdp"),
+    }
+
+
 def mlp_block(params, x: torch.Tensor, act: str) -> torch.Tensor:
     """``params`` maps names to matrices in x's dtype."""
     if act == "gelu_mlp":
-        return common.gelu(x @ params["w_in"]) @ params["w_out"]
+        h = common.with_logical(common.gelu(x @ params["w_in"]), "batch", "seq", "ffn")
+        return h @ params["w_out"]
     gate = x @ params["w_gate"]
     up = x @ params["w_up"]
     act_fn = common.silu if act == "silu" else common.gelu
-    return (act_fn(gate) * up) @ params["w_down"]
+    h = common.with_logical(act_fn(gate) * up, "batch", "seq", "ffn")
+    return h @ params["w_down"]

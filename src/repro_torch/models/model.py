@@ -27,19 +27,32 @@ attention rotates by M-RoPE's three position streams, (B, S, 3) positions.
 on a dict of named tensors in their place (``torch.func.functional_call``):
 the trainer differentiates it with respect to such a dict, so the module's
 own parameters never require gradients and serving builds no graph.
+
+Sharding: ``param_specs`` and ``cache_specs`` give every parameter and
+cache tensor its logical axes, in the port's layout (the reference's
+stacked ``units`` axis, "layers", has no counterpart: the layers are
+unstacked).  :func:`shard_model` lays the parameters out on a DeviceMesh
+as DTensors; under ``use_mesh`` and ``use_rules`` (``distributed.sharding``)
+``apply`` lays its inputs out by "batch", ``init_caches`` lays the caches
+out by their specs, and the activations are redistributed at the
+reference's ``with_logical`` hints.  Plain tensors made inside the model
+(positions, masks, constants) count as replicated there.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import distribute_tensor
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.models import attention, common, mamba, mla, moe as moe_mod, xlstm
 from repro_torch.models.config import LayerKind, ModelConfig
-from repro_torch.models.mlp import init_mlp_params, mlp_block, mlp_shapes
+from repro_torch.models.mlp import init_mlp_params, mlp_block, mlp_param_specs, mlp_shapes
 
 # One attention.KVCache, mla.MLACache, mamba.MambaState, xlstm.MLSTMState or
 # xlstm.SLSTMState per layer.
@@ -53,15 +66,19 @@ class _Mixer(NamedTuple):
     init: Callable            # (gen, cfg, device) -> float32 weights
     block: Callable           # (params, x, cfg, state) -> (out, new state)
     state: Callable           # (cfg, batch, device) -> a fresh state
+    specs: Callable           # cfg -> {name: logical axes}
 
 
 _MIXERS = {
     LayerKind.MAMBA: _Mixer(mamba.mamba_shapes, mamba.FLOAT32, mamba.init_mamba_params,
-                            mamba.mamba_block, mamba.init_mamba_state),
+                            mamba.mamba_block, mamba.init_mamba_state,
+                            mamba.mamba_param_specs),
     LayerKind.MLSTM: _Mixer(xlstm.mlstm_shapes, xlstm.FLOAT32, xlstm.init_mlstm_params,
-                            xlstm.mlstm_block, xlstm.init_mlstm_state),
+                            xlstm.mlstm_block, xlstm.init_mlstm_state,
+                            xlstm.mlstm_param_specs),
     LayerKind.SLSTM: _Mixer(xlstm.slstm_shapes, xlstm.FLOAT32, xlstm.init_slstm_params,
-                            xlstm.slstm_block, xlstm.init_slstm_state),
+                            xlstm.slstm_block, xlstm.init_slstm_state,
+                            xlstm.slstm_param_specs),
 }
 
 
@@ -87,6 +104,77 @@ def _layer_is_moe(cfg: ModelConfig, layer_idx: int) -> bool:
 def _starts_unit(cfg: ModelConfig, index: int) -> bool:
     """Whether layer ``index`` is the first of one of the repeated units."""
     return index >= len(cfg.prefix) and (index - len(cfg.prefix)) % len(cfg.pattern_unit) == 0
+
+
+def _layer_specs(cfg: ModelConfig, kind: LayerKind, layer_idx: int) -> dict:
+    """Logical axes of one layer's parameters, named as its module's."""
+    mlp = (moe_mod.moe_param_specs(cfg.moe) if _layer_is_moe(cfg, layer_idx)
+           else mlp_param_specs(cfg.mlp_act))
+    if kind in _MIXERS:
+        s = {"norm": (None,), "mixer": _MIXERS[kind].specs(cfg)}
+        if kind == LayerKind.MAMBA and (_layer_is_moe(cfg, layer_idx) or cfg.d_ff > 0):
+            s["norm_mlp"] = (None,)
+            s["mlp"] = mlp
+        return s
+    s = {"norm_attn": (None,), "norm_mlp": (None,), "mlp": mlp,
+         "attn": (mla.mla_param_specs(cfg) if kind == LayerKind.MLA
+                  else attention.attn_param_specs(cfg))}
+    if cfg.post_block_norm:
+        s["post_norm_attn"] = (None,)
+        s["post_norm_mlp"] = (None,)
+    return s
+
+
+def _layer_cache_specs(cfg: ModelConfig, kind: LayerKind):
+    """Logical axes for each cache/state tensor of one layer (its index: ())."""
+    if kind in attention.ATTN_KINDS:
+        return attention.KVCache(
+            k=("batch", "seq_kv", "kv_heads", None),
+            v=("batch", "seq_kv", "kv_heads", None),
+            index=(),
+        )
+    if kind == LayerKind.MLA:
+        return mla.MLACache(
+            c_kv=("batch", "seq_kv", None),
+            k_rope=("batch", "seq_kv", None),
+            index=(),
+        )
+    if kind == LayerKind.MAMBA:
+        return mamba.MambaState(
+            conv=("batch", None, "conv_dim"),
+            ssm=("batch", "conv_dim", "state"),
+            index=(),
+        )
+    if kind == LayerKind.MLSTM:
+        return xlstm.MLSTMState(
+            c=("batch", None, None, None),
+            n=("batch", None, None),
+            m=("batch", None),
+            conv=("batch", None, "conv_dim"),
+            index=(),
+        )
+    if kind == LayerKind.SLSTM:
+        return xlstm.SLSTMState(
+            c=("batch", None, None),
+            n=("batch", None, None),
+            h=("batch", None, None),
+            m=("batch", None, None),
+            index=(),
+        )
+    raise ValueError(kind)
+
+
+def cache_specs(cfg: ModelConfig) -> list:
+    """Logical axes matching ``init_caches``: one per layer."""
+    return [_layer_cache_specs(cfg, kind) for kind in cfg.layer_kinds]
+
+
+def _place_cache(cache, specs):
+    """A layer's cache with every tensor laid out on the ambient mesh by its
+    spec."""
+    return dataclasses.replace(cache, **{
+        f.name: sharding.distribute(getattr(cache, f.name), *getattr(specs, f.name))
+        for f in dataclasses.fields(cache) if f.name != "index"})
 
 
 class MoeWeights(nn.Module):
@@ -253,6 +341,7 @@ class LMModel(nn.Module):
 
     # ---------------- init ------------------------------------------------
     @torch.no_grad()
+    @sharding.plain_as_replicated()
     def init(self, seed: int) -> "LMModel":
         """Seeded weights with the reference's distributions (unit-normal
         embedding, fan-in truncated normals, zero norm scales and biases; the
@@ -261,7 +350,8 @@ class LMModel(nn.Module):
         device from a ``torch.Generator``: other numbers than ``jax.random``
         gives for the same seed.  A MoE's routed tensors are drawn in float32
         one at a time, each copied into its parameter before the next, so
-        that ``init`` needs the weights plus one such tensor."""
+        that ``init`` needs the weights plus one such tensor.  Under a mesh
+        each draw is copied into its DTensor's local shards."""
         cfg, dev = self.cfg, self.device
         gen = torch.Generator(device=dev).manual_seed(seed)
         self.embed.copy_(common.embed_init(gen, tuple(self.embed.shape), device=dev))
@@ -303,7 +393,7 @@ class LMModel(nn.Module):
                 positions = torch.arange(inputs.shape[1], device=x.device).expand(inputs.shape[:2])
             pos = positions if positions.dim() == 2 else positions[..., 0]
             x = x + common.sinusoidal_embedding(pos, cfg.d_model).to(self.dtype)
-        return x
+        return common.with_logical(x, "batch", "seq", None)
 
     def _logits(self, x32: torch.Tensor) -> torch.Tensor:
         """The logits from the float32 value of the residual stream after
@@ -312,8 +402,10 @@ class LMModel(nn.Module):
         cfg = self.cfg
         x = common.rms_norm(x32, self.final_norm, cfg.norm_eps, self.dtype)
         head = self.embed.T if cfg.tie_embeddings else self.lm_head
-        return common.softcap((x @ head).float(), cfg.logit_softcap)
+        logits = common.softcap((x @ head).float(), cfg.logit_softcap)
+        return common.with_logical(logits, "batch", "seq", "vocab")
 
+    @sharding.plain_as_replicated()
     def apply(
         self,
         inputs,                                        # (B, S) token ids or (B, S, D)
@@ -326,9 +418,11 @@ class LMModel(nn.Module):
         plus i (on all three M-RoPE streams).  ``aux`` holds the reference's
         MoE terms (``aux_loss``, ``z_loss``, ``fraction_dropped``), each
         summed over the MoE layers: float32 scalars, or 0.0 without a MoE
-        layer."""
+        layer.  Under a mesh (``distributed.sharding``) the inputs are laid
+        out by "batch" and the logits are a DTensor."""
         cfg = self.cfg
         inputs = torch.as_tensor(inputs, device=self.device)
+        inputs = sharding.distribute(inputs, "batch", "seq", *(None,) * (inputs.dim() - 2))
         b, s = inputs.shape[:2]
         if positions is None:
             start = 0 if caches is None else caches[0].index
@@ -361,6 +455,7 @@ class LMModel(nn.Module):
         return self.apply(inputs, positions, caches)
 
     # ---------------- loss --------------------------------------------------
+    @sharding.plain_as_replicated()
     def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
         """batch: {"inputs": (B, S) or (B, S, D), "targets": (B, S) int,
         optional "mask": (B, S), optional "positions"}; ``params``: named
@@ -369,7 +464,7 @@ class LMModel(nn.Module):
         the masked mean NLL of ``log_softmax``, plus the logit z-loss ``1e-4
         * mean(logsumexp^2)``, plus the MoE's ``aux_loss`` and ``z_loss``;
         metrics ``loss``, ``ce``, ``moe_aux``, ``moe_dropped`` (float32
-        0-dim tensors)."""
+        0-dim tensors; DTensors under a mesh)."""
         logits, _, aux = torch.func.functional_call(
             self, params, (batch["inputs"], batch.get("positions")))
         targets = torch.as_tensor(batch["targets"], device=logits.device).long()
@@ -398,12 +493,47 @@ class LMModel(nn.Module):
         """A cache per layer: ``dtype`` (bfloat16 by default, as the
         reference's) for the attention layers' keys and values; a float32
         state (``MambaState``, ``MLSTMState``, ``SLSTMState``) for a
-        recurrent layer, whatever ``dtype``."""
+        recurrent layer, whatever ``dtype``.  Under a mesh each tensor is
+        laid out by ``cache_specs``."""
         cfg, dev = self.cfg, self.device
-        return [_MIXERS[layer.kind].state(cfg, batch, dev) if layer.kind in _MIXERS
-                else (mla.init_mla_cache if layer.kind == LayerKind.MLA
-                      else attention.init_kv_cache)(cfg, batch, max_len, dtype, dev)
-                for layer in self.layers]
+        caches = [_MIXERS[layer.kind].state(cfg, batch, dev) if layer.kind in _MIXERS
+                  else (mla.init_mla_cache if layer.kind == LayerKind.MLA
+                        else attention.init_kv_cache)(cfg, batch, max_len, dtype, dev)
+                  for layer in self.layers]
+        if sharding.on_mesh():
+            caches = [_place_cache(c, specs) for c, specs in zip(caches, cache_specs(cfg))]
+        return caches
+
+    # ---------------- sharding specs ---------------------------------------
+    def param_specs(self) -> dict:
+        """Logical axes of every parameter, keyed by ``state_dict`` name."""
+        cfg = self.cfg
+        specs: dict = {"embed": ("vocab", "fsdp"), "final_norm": (None,)}
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = ("fsdp", "vocab")
+        for i, kind in enumerate(cfg.layer_kinds):
+            _flatten(_layer_specs(cfg, kind, i), f"layers.{i}.", specs)
+        return specs
+
+    def abstract_params(self) -> dict:
+        """Every parameter's shape and dtype, allocating nothing: the state
+        dict of a ``meta``-device copy of the model."""
+        return dict(LMModel(self.cfg, device="meta").state_dict())
+
+
+@torch.no_grad()
+def shard_model(model: LMModel, mesh, rules: sharding.ShardingRules) -> LMModel:
+    """Each parameter of ``model`` swapped for a DTensor laid out on ``mesh``
+    by its logical spec under ``rules`` (the reference's ``in_shardings`` of
+    the parameters).  Returns the model."""
+    for name, axes in model.param_specs().items():
+        owner_name, _, leaf = name.rpartition(".")
+        owner = model.get_submodule(owner_name)
+        placements = sharding.spec_to_placements(sharding.logical_to_spec(axes, rules, mesh),
+                                                 mesh)
+        weight = distribute_tensor(getattr(owner, leaf).detach(), mesh, placements)
+        owner.register_parameter(leaf, nn.Parameter(weight, requires_grad=False))
+    return model
 
 
 # --------------------------------------------------------------------------

@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.models import common
 from repro_torch.models.config import MoeConfig
-from repro_torch.models.mlp import init_mlp_params, mlp_block
+from repro_torch.models.mlp import init_mlp_params, mlp_block, mlp_param_specs
 
 ROUTED = ("w_gate", "w_up", "w_down")       # the routed experts' tensors (E, ., .)
 
@@ -38,6 +38,19 @@ def moe_shapes(d_model: int, moe: MoeConfig) -> dict[str, tuple[int, ...]]:
     e, dx = moe.num_experts, moe.d_expert
     return {"router": (d_model, e), "w_gate": (e, d_model, dx), "w_up": (e, d_model, dx),
             "w_down": (e, dx, d_model)}
+
+
+def moe_param_specs(moe: MoeConfig) -> dict:
+    """Logical axes per parameter (the reference's; the same shapes)."""
+    specs = {
+        "router": ("fsdp", None),
+        "w_gate": ("experts", "fsdp", None),
+        "w_up": ("experts", "fsdp", None),
+        "w_down": ("experts", None, "fsdp"),
+    }
+    if moe.num_shared > 0:
+        specs["shared"] = mlp_param_specs("silu")
+    return specs
 
 
 def draw_moe_params(gen: torch.Generator, d_model: int, moe: MoeConfig, device=None):
@@ -86,12 +99,15 @@ def moe_block(params, x: torch.Tensor, moe: MoeConfig) -> tuple[torch.Tensor, di
 
     # dispatch: kept (token, choice) rows into their expert's slots; the
     # dropped ones go to a spare slot past the capacity, which no expert runs.
+    # (The reference's hint on its (T, E, C) one-hot dispatch tensor has no
+    # counterpart: the rows are written into the buffer directly.)
     slot = torch.where(kept, slot, cap)
     buf = x.new_zeros((e, cap + 1, d))
     buf[top_e, slot] = xt[:, None, :].expand(t, k, d)
-    ex_in = buf[:, :cap]
+    ex_in = common.with_logical(buf[:, :cap], "experts", None, None)
     h = common.silu(torch.bmm(ex_in, params["w_gate"])) * torch.bmm(ex_in, params["w_up"])
-    ex_out = torch.bmm(h, params["w_down"])                                  # (E, C, D)
+    ex_out = common.with_logical(torch.bmm(h, params["w_down"]),              # (E, C, D)
+                                 "experts", None, None)
 
     # combine: each token's k rows (a dropped one reads slot 0, weight 0)
     rows = ex_out[top_e, torch.where(kept, slot, 0)].float()                 # (T, k, D)

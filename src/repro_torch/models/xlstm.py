@@ -85,6 +85,22 @@ def mlstm_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
             "ogate_skip": (d_inner,), "w_down": (d_inner, d)}
 
 
+def mlstm_param_specs(cfg: ModelConfig) -> dict:
+    """Logical axes per parameter (the reference's; the same shapes)."""
+    return {
+        "w_up": ("fsdp", "conv_dim"),
+        "conv_w": (None, "conv_dim"),
+        "conv_b": ("conv_dim",),
+        "w_q": ("conv_dim", "fsdp"),
+        "w_k": ("conv_dim", "fsdp"),
+        "w_v": ("conv_dim", "fsdp"),
+        "w_if": ("conv_dim", None),
+        "if_bias": (None,),
+        "ogate_skip": ("conv_dim",),
+        "w_down": ("conv_dim", "fsdp"),
+    }
+
+
 def init_mlstm_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
     """float32 weights drawn as the reference's, in its order: fan-in
     truncated normals for the projections, ``0.1 * normal`` conv taps, zero
@@ -169,6 +185,7 @@ def mlstm_block(
     hs = MLSTM_HEADS
 
     xm, z = torch.chunk(x @ params["w_up"], 2, dim=-1)
+    xm = common.with_logical(xm, "batch", "seq", "conv_dim")
     xc, conv_tail = _causal_conv(xm, params["conv_w"], params["conv_b"],
                                  None if state is None else state.conv)
     q, k, v = xc @ params["w_q"], xc @ params["w_k"], xm @ params["w_v"]
@@ -207,7 +224,7 @@ def mlstm_block(
     h = h.transpose(1, 2).reshape(b, s, d_inner).to(dtype)
     h = h + xc * params["ogate_skip"]                   # learnable skip
     h = h * common.silu(z)
-    return h @ params["w_down"], new_state
+    return common.with_logical(h @ params["w_down"], "batch", "seq", None), new_state
 
 
 # ==========================================================================
@@ -229,6 +246,18 @@ def slstm_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     d_ff = slstm_d_ff(cfg)
     return {"w_gates": (d, 4 * d), "r_gates": (hs, dh, 4 * dh), "gate_bias": (4 * d,),
             "w_ff_gate": (d, d_ff), "w_ff_up": (d, d_ff), "w_ff_down": (d_ff, d)}
+
+
+def slstm_param_specs(cfg: ModelConfig) -> dict:
+    """Logical axes per parameter (the reference's; the same shapes)."""
+    return {
+        "w_gates": ("fsdp", None),
+        "r_gates": (None, None, None),
+        "gate_bias": (None,),
+        "w_ff_gate": ("fsdp", "ffn"),
+        "w_ff_up": ("fsdp", "ffn"),
+        "w_ff_down": ("ffn", "fsdp"),
+    }
 
 
 def init_slstm_params(gen: torch.Generator, cfg: ModelConfig, device=None) -> dict:
@@ -291,7 +320,8 @@ def slstm_block(
     # the block's gated FFN (projection factor 4/3, GeLU)
     gate = h @ params["w_ff_gate"]
     up = h @ params["w_ff_up"]
-    return (common.gelu(gate) * up) @ params["w_ff_down"], new_state
+    y = (common.gelu(gate) * up) @ params["w_ff_down"]
+    return common.with_logical(y, "batch", "seq", None), new_state
 
 
 def init_mlstm_state(cfg: ModelConfig, batch: int, device=None) -> MLSTMState:

@@ -18,8 +18,11 @@ each leaf's key path ("opt/m/embed") is recorded.
   thread, overlapping I/O with the next steps.
 * numpy has no bfloat16: such a leaf is stored as its uint16 bits, and the
   manifest's dtype says how to read it back.
-* restore() puts each leaf on the caller's device.  (The reference's
-  resharding onto another mesh waits for the port's ``distributed/``.)
+* save() writes a DTensor leaf whole (gathered, as the reference writes
+  ``np.asarray`` of a sharded array); restore() puts each leaf on the
+  caller's device or, given a ``sharding_tree`` of
+  ``distributed.sharding.named_sharding`` records, lays it out on that
+  record's mesh as a DTensor: a restore onto another mesh reshards.
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.distributed import sharding
 
 
 def flatten(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
@@ -54,7 +59,7 @@ def _to_host(x) -> tuple[np.ndarray, str]:
     """A copy of the leaf in host memory, never a view of it (the next steps
     update a CPU state's parameters and moments in place while the writer
     thread runs), and its dtype's name."""
-    t = torch.as_tensor(x).detach().to("cpu", copy=True)
+    t = sharding.full(torch.as_tensor(x)).detach().to("cpu", copy=True)
     dtype = str(t.dtype).removeprefix("torch.")
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
@@ -66,6 +71,16 @@ def _from_host(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
     if dtype == "bfloat16":
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(arr).to(device)
+
+
+def _subtree(tree: Any, key: str) -> Any:
+    """The node of ``tree`` at key path ``key`` ("opt/m/embed"), or None
+    where the path leaves it."""
+    for part in key.split("/"):
+        if not isinstance(tree, dict):
+            return tree
+        tree = tree.get(part)
+    return tree
 
 
 class CheckpointManager:
@@ -130,9 +145,12 @@ class CheckpointManager:
                     steps.append(int(name.split("_")[1]))
         return max(steps) if steps else None
 
-    def restore(self, like: Any, step: Optional[int] = None, device=None) -> tuple[int, Any]:
+    def restore(self, like: Any, step: Optional[int] = None, device=None,
+                sharding_tree: Any = None) -> tuple[int, Any]:
         """(step, the state) in the structure of ``like`` (a nested dict whose
-        leaves may be anything), each leaf on ``device`` (default: the CPU)."""
+        leaves may be anything), each leaf on ``device`` (default: the CPU)
+        or, where ``sharding_tree`` (nested dicts shaped as ``like``, or a
+        prefix of it) holds a ``NamedSharding``, a DTensor laid out by it."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -147,8 +165,11 @@ class CheckpointManager:
                              f"missing {sorted(set(keys) - set(saved))}, "
                              f"extra {sorted(set(saved) - set(keys))}")
         device = torch.device("cpu") if device is None else device
-        leaves = [_from_host(np.load(os.path.join(path, f"{i}.npy")), leaf["dtype"], device)
-                  for i, leaf in enumerate(manifest["leaves"])]
+        leaves = []
+        for i, (key, leaf) in enumerate(zip(keys, manifest["leaves"])):
+            x = _from_host(np.load(os.path.join(path, f"{i}.npy")), leaf["dtype"], device)
+            shard = _subtree(sharding_tree, key)
+            leaves.append(x if shard is None else shard.place(x))
         return step, unflatten(like, leaves)
 
     # ------------------------------------------------------------------ gc

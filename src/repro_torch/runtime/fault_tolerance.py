@@ -1,7 +1,6 @@
-"""Stage heartbeats and checkpoint-replay recovery (copies of
-``HostStatus``, ``HeartbeatMonitor`` and ``run_with_recovery`` from
-``repro/runtime/fault_tolerance.py``; the reference's ``elastic_reshard``
-needs a device mesh and waits for the port's ``distributed/``).
+"""Stage heartbeats, checkpoint-replay recovery and elastic re-scale
+(counterpart of ``repro/runtime/fault_tolerance.py``: ``HostStatus``,
+``HeartbeatMonitor``, ``run_with_recovery``, ``elastic_reshard``).
 
 Each stage thread of :class:`repro_torch.serving.stereo_service.StereoService`
 beats once per poll with its wave count as the step, so a wedged stage
@@ -14,6 +13,11 @@ from __future__ import annotations
 import dataclasses
 import time
 from typing import Any, Callable
+
+from torch.distributed.device_mesh import DeviceMesh
+
+from repro_torch.distributed.sharding import (NamedSharding, ShardingRules, logical_to_spec,
+                                              spec_to_placements)
 
 
 @dataclasses.dataclass
@@ -116,3 +120,26 @@ def run_with_recovery(
             step, state = restore_fn()
     checkpoint_mgr.wait()
     return state, step, failures
+
+
+# --------------------------------------------------------------------------
+# elastic re-scale
+# --------------------------------------------------------------------------
+def elastic_reshard(
+    tree: Any,
+    spec_tree: Any,
+    new_mesh: DeviceMesh,
+    rules: ShardingRules,
+) -> Any:
+    """Re-lay-out a tree of tensors (plain, or DTensors on any mesh) onto
+    ``new_mesh``: nested dicts and lists of them, with ``spec_tree`` in the
+    same structure holding each leaf's logical-axis tuple (the model's
+    ``param_specs``).  The specs are re-resolved against the NEW mesh, so
+    e.g. fsdp=("pod","data") simply drops the pod axis when the new mesh has
+    none."""
+    if isinstance(tree, dict):
+        return {k: elastic_reshard(v, spec_tree[k], new_mesh, rules) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [elastic_reshard(v, s, new_mesh, rules) for v, s in zip(tree, spec_tree)]
+    spec = logical_to_spec(spec_tree, rules, new_mesh)
+    return NamedSharding(new_mesh, spec, spec_to_placements(spec, new_mesh)).place(tree)

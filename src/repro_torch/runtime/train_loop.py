@@ -22,6 +22,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.models.model import LMModel
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 from repro_torch.optim.schedule import ScheduleConfig, learning_rate
@@ -68,6 +69,7 @@ def make_train_step(
     gradients are summed in ``accum_dtype`` and divided by ``microbatches``,
     and the loss and metrics are the microbatches' means."""
 
+    @sharding.plain_as_replicated()
     def train_step(params, opt_state, batch):
         if microbatches == 1:
             loss, metrics, grads = value_and_grad(model, params, batch)
@@ -76,7 +78,7 @@ def make_train_step(
                 n = x.shape[0] // microbatches
                 return x[i * n:(i + 1) * n]
 
-            acc = {n: torch.zeros(p.shape, dtype=getattr(torch, accum_dtype), device=p.device)
+            acc = {n: torch.zeros_like(p, dtype=getattr(torch, accum_dtype))
                    for n, p in params.items()}
             losses, stack = [], []
             for i in range(microbatches):
@@ -159,7 +161,7 @@ class Trainer:
                 state = {"params": params, "opt": opt}
                 step += 1
                 if step % self.cfg.log_every == 0 or step == self.cfg.num_steps:
-                    m = {k: float(v) for k, v in metrics.items()}
+                    m = {k: float(sharding.full(v)) for k, v in metrics.items()}
                     m["step"] = step
                     m["step_time_s"] = time.monotonic() - t0
                     self.history.append(m)
@@ -183,10 +185,19 @@ class Trainer:
                 "history": self.history}
 
     def _restore(self) -> tuple[int, dict]:
-        """The latest checkpoint, its parameters copied into the model's."""
+        """The latest checkpoint, its parameters copied into the model's;
+        under a mesh the parameters and moments come back laid out by the
+        model's specs."""
         params = dict(self.model.named_parameters())
         like = {"params": params, "opt": {"m": params, "v": params, "step": None}}
-        step, state = self.ckpt.restore(like, device=self.model.device)
+        shardings = None
+        if sharding.on_mesh():
+            mesh = sharding.current_mesh()
+            named = {n: sharding.named_sharding(mesh, *axes)
+                     for n, axes in self.model.param_specs().items()}
+            shardings = {"params": named, "opt": {"m": named, "v": named}}
+        step, state = self.ckpt.restore(like, device=self.model.device,
+                                        sharding_tree=shardings)
         with torch.no_grad():
             for name, p in params.items():
                 p.copy_(state["params"][name])

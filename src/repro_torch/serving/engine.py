@@ -7,7 +7,9 @@ until its prompt is exhausted, then its previously generated token --
 variable-length prompts batch together with no padding-restart logic and a
 single cache index.  When every slot in the wave is done, the next wave
 starts on fresh caches.  The decode step is :func:`decode_step`, run eagerly
-under ``torch.inference_mode()`` (the reference jits it).
+under ``torch.inference_mode()`` (the reference jits it).  Under a mesh
+(``distributed.sharding``) the caches are DTensors and each step's tokens
+are gathered to the host whole.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.models.model import LMModel
 
 
@@ -27,13 +30,15 @@ class Request:
     tokens: list = dataclasses.field(default_factory=list)
 
 
-@torch.inference_mode()
 def decode_step(model: LMModel, caches: list, tokens: torch.Tensor):
     """One token per slot through the model: (new caches, the greedy next
     token of each slot).  ``argmax`` takes the first of tied maxima, as
-    ``jnp.argmax`` does."""
-    logits, caches, _ = model.apply(tokens, caches=caches)
-    return caches, torch.argmax(logits[:, -1, :], dim=-1)
+    ``jnp.argmax`` does.  Runs under ``torch.inference_mode()``; under a
+    mesh under ``torch.no_grad()``, since DTensor's views cannot take
+    inference tensors."""
+    with torch.no_grad() if sharding.on_mesh() else torch.inference_mode():
+        logits, caches, _ = model.apply(tokens, caches=caches)
+        return caches, torch.argmax(logits[:, -1, :], dim=-1)
 
 
 class ServeEngine:
@@ -58,7 +63,7 @@ class ServeEngine:
         for t in range(horizon):
             tokens = torch.as_tensor(last, device=self.model.device)[:, None]
             caches, nxt = decode_step(self.model, caches, tokens)
-            nxt_np = nxt.cpu().numpy()
+            nxt_np = sharding.full(nxt).cpu().numpy()
             for i, r in enumerate(wave):
                 if t + 1 < lens[i]:
                     last[i] = r.prompt[t + 1]          # still prefilling

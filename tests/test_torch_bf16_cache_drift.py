@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 
 import torch_lm_cases as cases
+from torch_lm_cases import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 STEPS = 48
 BATCH = 32                 # 32 sequences of token seed 0, one batch

@@ -48,6 +48,7 @@ import pytest
 import torch
 
 import torch_lm_cases as cases
+from torch_lm_cases import one_torch_thread  # noqa: F401 (an autouse fixture)
 from repro.configs import get_config as ref_get_config
 from repro.models.model import _layer_is_moe as ref_layer_is_moe
 from repro.models.model import count_params as ref_count_params

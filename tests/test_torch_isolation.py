@@ -1,6 +1,6 @@
 """The port stands alone: nothing under src/repro_torch/, in chip_smoke.py,
-dense_profile.py, flash_profile.py, stage_profile.py, service_profile.py or
-lm_step_profile.py imports jax or the reference package, and importing the port loads no jax."""
+dense_profile.py, flash_profile.py, stage_profile.py, service_profile.py,
+lm_step_profile.py or meshless_cost.py imports jax or the reference package, and importing the port loads no jax."""
 import ast
 import os
 import subprocess
@@ -13,6 +13,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "dense_profile.py", ROOT / "flash_profile.py",
     ROOT / "stage_profile.py", ROOT / "service_profile.py", ROOT / "lm_step_profile.py",
+    ROOT / "meshless_cost.py",
 ]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -84,7 +85,9 @@ def test_import_leaves_jax_unloaded():
         "repro_torch.configs.qwen2_vl_7b, repro_torch.configs.musicgen_large, "
         "repro_torch.data.tokens, repro_torch.optim.adamw, repro_torch.optim.schedule, "
         "repro_torch.optim.compression, repro_torch.runtime.train_loop, "
-        "repro_torch.runtime.checkpoint, repro_torch.launch.train\n"
+        "repro_torch.runtime.checkpoint, repro_torch.launch.train, repro_torch.distributed, "
+        "repro_torch.distributed.sharding, repro_torch.launch.mesh, repro_torch.configs.shapes, "
+        "repro_torch.analysis, repro_torch.analysis.roofline\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

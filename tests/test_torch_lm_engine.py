@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import torch_lm_cases as cases
+from torch_lm_cases import one_torch_thread  # noqa: F401 (an autouse fixture)
 from repro.serving.engine import ServeEngine as RefServeEngine
 from repro_torch.launch import serve
 from repro_torch.models.model import LMModel

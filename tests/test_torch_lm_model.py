@@ -22,6 +22,7 @@ import pytest
 import torch
 
 import torch_lm_cases as cases
+from torch_lm_cases import one_torch_thread  # noqa: F401 (an autouse fixture)
 from repro.configs import ARCH_IDS as ref_arch_ids
 from repro.configs import get_config as ref_get_config
 from repro.models import attention as ref_attention

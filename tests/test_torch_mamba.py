@@ -20,6 +20,7 @@ import pytest
 import torch
 
 import torch_lm_cases as cases
+from torch_lm_cases import one_torch_thread  # noqa: F401 (an autouse fixture)
 from repro.models import mamba as ref_mamba
 from repro_torch.models import common, mamba
 

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 import torch_lm_cases as cases
+from torch_lm_cases import one_torch_thread  # noqa: F401 (an autouse fixture)
 from hypothesis_compat import given, settings, st
 from repro.models import moe as ref_moe
 from repro.models.config import MoeConfig as RefMoeConfig
