@@ -193,8 +193,13 @@ Phases (any failure exits nonzero):
     microbatches, 6 steps, a checkpoint every 2, one injected
     ``SimulatedNodeFailure`` before step 3's batch whose replayed step must
     give the same loss bit for bit; step times, tokens/s, memory, flash
-    forward and backward launches (16 a step each) and one profiled step;
-    then ``python -m repro_torch.launch.train`` once on the card;
+    forward and backward launches (under remat, the default, each layer's
+    forward runs twice: 32 and 16 a step) and one profiled step; (e) remat
+    on the card: one microbatch's loss and every gradient of that model with
+    remat and without bit-equal, each run's peak memory above its start, and
+    the flash forward at the training shape giving its output and
+    log-sum-exp bit for bit again (what the recomputation relies on); then
+    ``python -m repro_torch.launch.train`` once on the card;
 20. the mesh: a world-1 NCCL group (a FileStore under build/) and a (1, 1)
     ("data", "model") DeviceMesh on the card, the rules of ``make_rules``:
     phase 19's 8-layer yi-9b at full widths, one ``Trainer`` step on phase
@@ -213,7 +218,14 @@ Phases (any failure exits nonzero):
     step's logits bit-equal, the tokens equal, flash launched once per layer
     per step, and the DTensor dispatch overhead per decode step (host clock);
     the phase's wall time;
-21. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
+21. the dry run: ``launch/dryrun.run_cell`` on a fake process group of 256
+    ranks and a fake ``cuda`` (16, 16) mesh (nothing is allocated on the
+    card) for yi-9b x decode_32k and yi-9b x prefill_32k (DRYRUN_CELLS): the
+    flash ops traced and counted (48 forward calls a step, their flops those
+    of the formula at the local shapes), no kernel launched, each meter's
+    totals (per-device flops, collective bytes by kind, MemTracker's memory)
+    and a peak below 80 GiB a device;
+22. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
 
 Each phase prints how far into the run it starts.
 
@@ -507,6 +519,12 @@ SHOWN = {"flash_attention": f"yi-9b decode bfloat16 Skv={FLASH_DECODE[-1][3]}"}
 # tokens (each decode step dispatches every operation through DTensor).
 MESH_PROMPT = 4
 MESH_NEW = 4
+# The dry-run phase (21): cells traced over the fake (16, 16) cuda mesh.  A
+# train_4k cell traces 16 microbatches of 48 layers' forward, recompute and
+# backward through DTensor: several minutes on the host, so the phase takes
+# the prefill cell beside decode (PERF.md).
+DRYRUN_CELLS = (("yi-9b", "decode_32k"), ("yi-9b", "prefill_32k"))
+DRYRUN_PEAK_GIB = 80
 
 
 def main() -> int:
@@ -2820,6 +2838,16 @@ def main() -> int:
     del q, k, v, g, out, lse, s_leaves, s_out
     torch.cuda.empty_cache()
 
+    def flash_forwards(cfg_) -> int:
+        """Flash forward launches of one forward and backward: one a GQA
+        layer, and one more for each GQA layer of the repeated units, whose
+        forward remat runs again in the backward."""
+        kinds = cfg_.layer_kinds
+        n = sum(kind in attention_mod.ATTN_KINDS for kind in kinds)
+        if cfg_.remat:
+            n += sum(kind in attention_mod.ATTN_KINDS for kind in kinds[len(cfg_.prefix):])
+        return n
+
     # (c) the reduced models' gradients on the card against the CPU
     for arch in TRAIN_GRAD_ARCHS:
         cfg32 = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
@@ -2834,9 +2862,9 @@ def main() -> int:
         torch.cuda.synchronize()
         ran = (flash_kernel.launches - before[0], flash_kernel.backward_launches - before[1])
         lh, _, gc_cpu = value_and_grad(on_cpu, dict(on_cpu.named_parameters()), batch)
-        if ran != (n_attn, n_attn):
+        if ran != (flash_forwards(cfg32), n_attn):
             raise AssertionError(f"train {cfg32.name}: flash forward / backward launches {ran}, "
-                                 f"expected {n_attn} each")
+                                 f"expected {(flash_forwards(cfg32), n_attn)}")
         worst = 0.0
         for pname, want in gc_cpu.items():
             top = float(want.abs().max())
@@ -2923,8 +2951,9 @@ def main() -> int:
     if not all(math.isfinite(m["loss"]) for m in hist):
         raise AssertionError(f"train {cfg.name}: a loss is not finite")
     per_step = TRAIN_LAYERS * TRAIN_MICROBATCHES
-    expect = {kk: per_step * len(hist) if kk in ("flash_attention", "flash_attention_bwd")
-              else 0 for kk in launches}
+    fwd_step = flash_forwards(cfg) * TRAIN_MICROBATCHES
+    expect = {kk: 0 for kk in launches}
+    expect.update(flash_attention=fwd_step * len(hist), flash_attention_bwd=per_step * len(hist))
     if counts != expect:
         raise AssertionError(f"train {cfg.name}: launches {counts} over {len(hist)} steps, "
                              f"expected {expect}")
@@ -2941,9 +2970,10 @@ def main() -> int:
           f"{step_lines}; the replayed step {TRAIN_FAIL_AT} equal bit for bit; {wall:.1f} s "
           f"wall for {len(hist)} steps and {len(saved_steps)} checkpoints (steps "
           f"{saved_steps}) "
-          f"({free_gb:.0f} GB free for them); flash forward {counts['flash_attention']} and "
-          f"backward {counts['flash_attention_bwd']} launches = {per_step} a step "
-          f"({TRAIN_LAYERS} layers x {TRAIN_MICROBATCHES} microbatches) x {len(hist)} steps; "
+          f"({free_gb:.0f} GB free for them); flash forward {counts['flash_attention']} "
+          f"({fwd_step} a step: remat {cfg.remat}, policy {cfg.remat_policy!r}) and "
+          f"backward {counts['flash_attention_bwd']} launches ({per_step} a step: "
+          f"{TRAIN_LAYERS} layers x {TRAIN_MICROBATCHES} microbatches) over {len(hist)} steps; "
           f"memory {state_gb:.2f} GiB after init, peak {peak_gb:.2f} GiB {card}")
 
     # one more step under the profiler
@@ -2963,6 +2993,49 @@ def main() -> int:
           f"{sum(r[1] for r in rows)} device operations {card}")
     del model, pipe, trainer, state, result, batch, rows
     shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) remat on the card: one microbatch of the same 8-layer model with
+    # remat (the default) and without, every gradient bit for bit; then the
+    # flash forward that the recomputation runs again, its output and
+    # log-sum-exp bit for bit at the training shape.
+    model = LMModel(cfg).init(0)
+    batch = pipeline_for(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0).batch_at(0)
+    batch = {kk: vv[:TRAIN_BATCH // TRAIN_MICROBATCHES] for kk, vv in batch.items()}
+    runs, peaks = {}, {}
+    for remat in (True, False):
+        model.cfg = dataclasses.replace(cfg, remat=remat)
+        gc.collect()
+        torch.cuda.empty_cache()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _, grads = value_and_grad(model, dict(model.named_parameters()), batch)
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated() - start) / 2**30
+        runs[remat] = (loss, grads)
+    differ = [n for n, g in runs[True][1].items() if not torch.equal(g, runs[False][1][n])]
+    if not torch.equal(runs[True][0], runs[False][0]) or differ:
+        raise AssertionError(f"train {cfg.name}: under remat the loss {float(runs[True][0])} "
+                             f"(without {float(runs[False][0])}), gradients differ: {differ[:4]}")
+    n_grads = len(runs[True][1])
+    del model, batch, runs, grads, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    qkv = [torch.randn(FLASH_BWD_TRAIN[:3] + FLASH_BWD_TRAIN[4:], generator=gen, device=dev,
+                       dtype=torch.bfloat16) for _ in range(3)]
+    first, again = (torch.ops.repro_torch.flash_fwd(*qkv, True, 0, 0.0, True) for _ in range(2))
+    if not (torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])):
+        raise AssertionError("flash forward at the training shape: a second call's output or "
+                             "log-sum-exp differs from the first's")
+    print(f"train {cfg.name} remat on the card: one microbatch ({TRAIN_BATCH // TRAIN_MICROBATCHES}"
+          f" x {TRAIN_SEQ}) under remat (policy 'nothing') and without: the loss and all "
+          f"{n_grads} gradients equal bit for bit; peak memory above the start {peaks[True]:.2f} GiB "
+          f"under remat against {peaks[False]:.2f} GiB without; the flash forward at "
+          f"{FLASH_BWD_TRAIN[:3] + FLASH_BWD_TRAIN[4:]} bf16 causal twice: output and "
+          f"log-sum-exp equal bit for bit {card}")
+    del qkv, first, again
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3090,9 +3163,9 @@ def main() -> int:
             reset_counts()
             (params, opt, metrics), rows, wall_ms = traced_step(label, one_step)
             counts = read_counts()
-            per_step = TRAIN_LAYERS * TRAIN_MICROBATCHES
-            expect = {kk: per_step if kk in ("flash_attention", "flash_attention_bwd") else 0
-                      for kk in launches}
+            expect = {kk: 0 for kk in launches}
+            expect.update(flash_attention=flash_forwards(cfg) * TRAIN_MICROBATCHES,
+                          flash_attention_bwd=TRAIN_LAYERS * TRAIN_MICROBATCHES)
             if counts != expect:
                 raise AssertionError(f"mesh train {cfg.name}: launches {counts}, expected "
                                      f"{expect}")
@@ -3253,8 +3326,52 @@ def main() -> int:
           f"reshard, checkpoint and restore {t_serve - t_reshard:.1f} s; serving "
           f"{t_end - t_serve:.1f} s) {card}")
 
-    # ---- 21. summary -------------------------------------------------------
+    # ---- 21. the dry run -----------------------------------------------------
+    # launch/dryrun.run_cell over a fake process group of 256 ranks and a fake
+    # cuda (16, 16) mesh: the step traced on fake tensors under the three
+    # meters; the flash ops run their fake implementations (no launch).
     phase_starts(21)
+    t_dry = time.perf_counter()
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import dryrun
+
+    before = read_counts()
+    for arch, shape_name in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape_name, verbose=False)
+        if dist.is_initialized():
+            raise AssertionError("dryrun.run_cell left its process group initialised")
+        cfg, spec = get_config(arch), SHAPES[shape_name]
+        decode = spec.mode == "decode"
+        # the flash ops at the local shapes: batch over "data" (16), heads over
+        # "model" (16), every key of the sequence (gathered where it is split)
+        b_local, h_local = spec.global_batch // 16, cfg.num_heads // 16
+        pairs = flash_kernel.visible_pairs(1 if decode else spec.seq_len, spec.seq_len,
+                                           not decode, 0)
+        want_flops = cfg.num_layers * 4 * b_local * h_local * cfg.head_dim * pairs
+        mem = rec["memory"]
+        peak_gib = mem["peak_bytes"] / 2**30
+        if (rec["flash_calls"] != {"forward": cfg.num_layers, "backward": 0}
+                or rec["flash_flops"] != want_flops or rec["device_type"] != "cuda"
+                or rec["mesh"] != "16x16" or not rec["flops"] > rec["flash_flops"]
+                or rec["collectives"]["count"] <= 0 or not 0 < peak_gib < DRYRUN_PEAK_GIB):
+            raise AssertionError(f"dry run {arch} x {shape_name}: {json.dumps(rec)[:3000]}")
+        coll = {kk: vv for kk, vv in rec["collectives"].items() if vv}
+        print(f"dry run {arch} x {shape_name} x {rec['mesh']} on fake cuda tensors: traced in "
+              f"{time.perf_counter() - t0:.1f} s; flash {rec['flash_calls']['forward']} forward "
+              f"calls, {rec['flash_flops']:.6g} flops = the formula's at ({b_local}, {h_local}, "
+              f"{1 if decode else spec.seq_len}, {spec.seq_len}, {cfg.head_dim}) a device x "
+              f"{cfg.num_layers} layers; flops a device {rec['flops']:.6g}; collectives {coll}; "
+              f"memory a device: peak {peak_gib:.3f} GiB (arguments "
+              f"{mem['argument_bytes'] / 2**30:.3f}, temporaries {mem['temp_bytes'] / 2**30:.3f},"
+              f" outputs {mem['output_bytes'] / 2**30:.4f}), at the peak "
+              f"{ {kk: round(vv / 2**30, 3) for kk, vv in mem['breakdown'].items()} } GiB {card}")
+    if read_counts() != before:
+        raise AssertionError(f"dry run: kernels launched: {read_counts()} against {before}")
+    print(f"dry-run phase: {time.perf_counter() - t_dry:.1f} s wall {card}")
+
+    # ---- 22. summary -------------------------------------------------------
+    phase_starts(22)
     shown = {**SHOWN, "flash_attention_bwd": train_label}
     entries = []
     for kname, _, _, source, replaces in kernels:

@@ -36,7 +36,7 @@ from typing import Optional, Tuple
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
-from torch.distributed.tensor.experimental import implicit_replication
+from torch.distributed.tensor.experimental import implicit_replication, local_map
 
 Spec = Tuple[Optional[object], ...]
 
@@ -206,6 +206,89 @@ def logical_constraint(x: torch.Tensor, logical_axes: Tuple[Optional[str], ...])
     if tuple(x.placements) == placements:
         return x
     return x.redistribute(x.device_mesh, placements)
+
+
+def on_local_shards(fn, in_axes: tuple, out_axes: tuple):
+    """``fn`` run on each rank's local shards, for a computation that is
+    local along the dimensions the rules split (attention over one batch
+    row and head, a recurrent chunk): under a mesh, with DTensor arguments,
+    each tensor argument is redistributed to the layout of its logical axes
+    (``in_axes``, one tuple per argument, None for a non-tensor or an absent
+    one; explicit redistributes, no-ops where the layouts agree) and the
+    outputs are DTensors laid out by ``out_axes`` (one tuple per output; a
+    single tuple of names for one output).  This is the layout GSPMD would
+    give such a computation; DTensor may have no strategy for some of its
+    operations, or for the reshapes of their backward.  Without a mesh, or
+    on plain tensors, ``fn`` itself."""
+    single = all(a is None or isinstance(a, str) for a in out_axes)
+
+    def wrapped(*args):
+        if not on_mesh() or not any(isinstance(a, DTensor) for a in args):
+            return fn(*args)
+        mesh = current_mesh()
+        in_placements, laid = [], []
+        for a, axes in zip(args, in_axes):
+            if axes is None or a is None:
+                in_placements.append(None)
+                laid.append(a)
+                continue
+            if not isinstance(a, DTensor):
+                raise TypeError("on_local_shards: every tensor argument with axes must be a "
+                                "DTensor under a mesh")
+            placements = logical_placements(axes, mesh=mesh)
+            in_placements.append(placements)
+            laid.append(a if tuple(a.placements) == placements
+                        else a.redistribute(mesh, placements))
+        # local_map reads a list as one output's placements, a tuple as one
+        # entry per output.
+        out_placements = (list(logical_placements(out_axes, mesh=mesh)) if single else
+                          tuple(list(logical_placements(axes, mesh=mesh)) for axes in out_axes))
+        local = local_map(fn, out_placements=out_placements, in_placements=tuple(in_placements),
+                          device_mesh=mesh)
+        return local(*laid)
+
+    return wrapped
+
+
+def replicated(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor redistributed to whole on every rank (a pending sum or mean
+    reduced, shards gathered); anything else unchanged."""
+    if not isinstance(x, DTensor) or all(p.is_replicate() for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def placements_split(x: torch.Tensor, dim: int) -> Optional[tuple]:
+    """For a DTensor split along ``dim``: its placements with that split
+    replicated; None for a plain tensor or one whole along ``dim``."""
+    if not isinstance(x, DTensor) or not any(p.is_shard(dim) for p in x.placements):
+        return None
+    return tuple(Replicate() if p.is_shard(dim) else p for p in x.placements)
+
+
+class _GradLayout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        # A pending sum's gradient is the same on every rank: replicated.
+        ctx.mesh = x.device_mesh
+        ctx.placements = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if isinstance(grad, DTensor) and tuple(grad.placements) != ctx.placements:
+            grad = grad.redistribute(ctx.mesh, ctx.placements)
+        return grad
+
+
+def keep_grad_layout(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself, whose gradient is laid out as ``x`` is before it flows
+    on (GSPMD reshards a gradient to its value's layout; DTensor may leave it
+    split where a later backward view cannot take it).  A no-op on a plain
+    tensor or without a mesh."""
+    if not isinstance(x, DTensor) or not on_mesh() or not torch.is_grad_enabled():
+        return x
+    return _GradLayout.apply(x)
 
 
 def distribute(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:

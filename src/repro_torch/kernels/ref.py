@@ -15,6 +15,8 @@ one sweep of ``d`` serves both views.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -130,10 +132,12 @@ class _XlaTanh(torch.autograd.Function):
     steps have none of their own)."""
 
     @staticmethod
-    def forward(ctx, x):
-        y = _xla_tanh_values(x)
-        ctx.save_for_backward(y)
-        return y
+    def forward(x):
+        return _xla_tanh_values(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
 
     @staticmethod
     def backward(ctx, g):
@@ -293,11 +297,13 @@ class _XlaSoftmax(torch.autograd.Function):
     has none: it is built from bits)."""
 
     @staticmethod
-    def forward(ctx, x, scale, mask):
-        p = _xla_softmax_values(x, scale, mask)
-        ctx.scale = scale
-        ctx.save_for_backward(p)
-        return p
+    def forward(x, scale, mask):
+        return _xla_softmax_values(x, scale, mask)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.scale = inputs[1]
+        ctx.save_for_backward(output)
 
     @staticmethod
     def backward(ctx, g):
@@ -991,6 +997,58 @@ def flash_attention_ref(
     out = [_flash_rows(q[:, :, lo:lo + rows], k, v, lo, causal, window, softcap)
            for lo in range(0, sq, rows)]
     return out[0] if len(out) == 1 else torch.cat(out, 2)
+
+
+def flash_lse_ref(q: torch.Tensor, k: torch.Tensor, causal: bool = True, window: int = 0,
+                  softcap: float = 0.0) -> torch.Tensor:
+    """Each query row's log-sum-exp of its visible scores (scaled, capped,
+    as :func:`flash_attention_ref`'s) in the log2 domain, (B * H, Sq)
+    float32: what the kernel writes beside its output for the backward."""
+    b, h, sq, d = q.shape
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (1.0 / d ** 0.5)
+    if softcap > 0.0:
+        s = softcap * tanh_f32(s * float(np.float32(1.0 / softcap)))
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(k.shape[2], device=q.device)[None, :]
+        mask = kpos <= qpos
+        if window > 0:
+            mask &= qpos - kpos < window
+        s = s.masked_fill(~mask, float("-inf"))
+    return (torch.logsumexp(s, -1) * (1.0 / math.log(2.0))).reshape(b * h, sq)
+
+
+def flash_attention_bwd_ref(q, k, v, dout, causal: bool = True, window: int = 0,
+                            softcap: float = 0.0):
+    """(dq, dk, dv) of :func:`flash_attention_ref` for the output gradient
+    ``dout``, in q's dtype: the chain autograd runs through it (the softmax's
+    ``p (g - sum(g p))`` times the scale, tanh's ``1 - y^2``), written out so
+    that it runs where autograd cannot record (below a custom op)."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    q32, k32, v32, g = q.float(), k.float(), v.float(), dout.float()
+    raw = torch.einsum("bhqd,bhkd->bhqk", q32, k32)
+    mask = None
+    if causal:
+        qpos = torch.arange(q.shape[2], device=q.device)[:, None]
+        kpos = torch.arange(k.shape[2], device=q.device)[None, :]
+        mask = kpos <= qpos
+        if window > 0:
+            mask &= qpos - kpos < window
+    if softcap > 0.0:
+        inv = float(np.float32(1.0 / softcap))
+        y = tanh_f32(raw * scale * inv)
+        p = _xla_softmax_values(softcap * y, 1.0, mask)
+    else:
+        p = _xla_softmax_values(raw, scale, mask)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, g)
+    dp = torch.einsum("bhqd,bhkd->bhqk", g, v32)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    if softcap > 0.0:
+        ds = ds * softcap * (1 - y * y) * inv
+    ds = ds * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k32)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q32)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _flash_rows(q, k, v, first: int, causal: bool, window: int, softcap: float):

@@ -31,10 +31,12 @@ index over the same buffers.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import common
 from repro_torch.models.config import LayerKind, ModelConfig
@@ -103,6 +105,12 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig):
     q, k, v = x @ params["wq"], x @ params["wk"], x @ params["wv"]
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    # Each merged head dimension takes its heads' layout before it is split
+    # into (heads, hd): DTensor cannot unflatten a dimension whose shards
+    # cut through a head (a matmul may shard the output columns of a
+    # replicated weight), where GSPMD would reshard.  No-ops without a mesh.
+    q = common.with_logical(q, "batch", "seq", "heads")
+    k, v = (common.with_logical(t, "batch", "seq", "kv_heads") for t in (k, v))
     hd = cfg.head_dim
     return (q.view(b, s, cfg.num_heads, hd), k.view(b, s, cfg.num_kv_heads, hd),
             v.view(b, s, cfg.num_kv_heads, hd))
@@ -143,11 +151,18 @@ def _expand_kv(k: torch.Tensor, num_heads: int, from_cache: bool = False) -> tor
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             window: int = 0, softcap: float = 0.0, from_cache: bool = False) -> torch.Tensor:
     """q (B, Sq, H, D), k and v (B, Skv, KV, D) in q's dtype -> (B, Sq, H, D)
-    through the flash kernel."""
+    through the flash kernel.  Under a mesh (DTensor inputs) the kernel runs
+    on each rank's local shards, its backward too: q, k, v and the output
+    laid out (B, H, S, D) by "batch" and "heads".  The kernel attends each
+    query row over every key of its head, so the sequence dimensions are
+    gathered wherever the rules split them (``seq_kv`` in long decode), and
+    k and v take q's split of the heads (a local slice where the KV heads
+    replicate): explicit redistributes, no-ops where the layouts agree."""
     h = q.shape[2]
-    out = flash_attention(q.transpose(1, 2), _expand_kv(k, h, from_cache),
-                          _expand_kv(v, h, from_cache), causal=causal, window=window,
-                          softcap=softcap)
+    flash = functools.partial(flash_attention, causal=causal, window=window, softcap=softcap)
+    bhsd = ("batch", "heads", None, None)
+    out = sharding.on_local_shards(flash, (bhsd,) * 3, bhsd)(
+        q.transpose(1, 2), _expand_kv(k, h, from_cache), _expand_kv(v, h, from_cache))
     return out.transpose(1, 2)
 
 
@@ -158,13 +173,33 @@ def decode_span(n: int, window: int) -> tuple[int, int]:
     return (max(0, n - window) if window > 0 else 0), n
 
 
-def cache_insert(buf: torch.Tensor, new: torch.Tensor, idx: int) -> torch.Tensor:
+def cache_insert(buf: torch.Tensor, new: torch.Tensor, idx: int, mode: str = "dus") -> torch.Tensor:
     """Write ``new`` (B, S_new, ...) into ``buf`` (B, S, ...) at ``idx``, in
-    place, cast to the buffer's dtype."""
+    place, cast to the buffer's dtype.  ``mode`` is the reference's
+    ``cache_update``: "dus" writes the slice; "onehot" (one new position)
+    rewrites the whole buffer as ``where(iota == idx, new, buf)``, an
+    elementwise update that keeps a buffer split along its sequence where it
+    is (DTensor gathers a sharded dimension to slice it)."""
     if idx + new.shape[1] > buf.shape[1]:
         raise ValueError(f"cache of {buf.shape[1]} positions cannot take {new.shape[1]} "
                          f"at index {idx}")
-    buf[:, idx:idx + new.shape[1]] = new.to(buf.dtype)
+    if mode not in ("dus", "onehot"):
+        raise ValueError(f"cache_update must be 'dus' or 'onehot', got {mode!r}")
+    if mode == "onehot" and new.shape[1] == 1:
+        sel = (torch.arange(buf.shape[1], device=buf.device) == idx).view(
+            1, buf.shape[1], *(1,) * (buf.dim() - 2))
+        buf.copy_(torch.where(sel, new.to(buf.dtype), buf))
+        return buf
+    split = sharding.placements_split(buf, 1)
+    if split is None:
+        buf[:, idx:idx + new.shape[1]] = new.to(buf.dtype)
+        return buf
+    # A sequence split over ranks: DTensor would slice a gathered copy, and the
+    # write would miss the buffer.  Gather, write, lay out again (what GSPMD
+    # does for the reference's dynamic_update_slice there).
+    whole = buf.redistribute(buf.device_mesh, split)
+    whole[:, idx:idx + new.shape[1]] = new.to(buf.dtype)
+    buf.copy_(whole.redistribute(buf.device_mesh, buf.placements))
     return buf
 
 
@@ -194,8 +229,8 @@ def attention_block(
         # decode: insert the token at cache.index, attend over the valid
         # prefix, or over its last `window` positions.
         lo, n = decode_span(cache.index + 1, window)
-        cache_insert(cache.k, k, cache.index)
-        cache_insert(cache.v, v, cache.index)
+        cache_insert(cache.k, k, cache.index, cfg.cache_update)
+        cache_insert(cache.v, v, cache.index, cfg.cache_update)
         out = _attend(q, cache.k[:, lo:n].to(q.dtype), cache.v[:, lo:n].to(q.dtype),
                       causal=False, softcap=cap, from_cache=True)
         new_cache = KVCache(k=cache.k, v=cache.v, index=n)

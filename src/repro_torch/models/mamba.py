@@ -31,10 +31,12 @@ of the zero-padded inputs: the reference's for three tokens or more.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
 
@@ -105,7 +107,10 @@ def _ssm_inputs(params, xc: torch.Tensor, cfg: ModelConfig):
     """xc (B, S, d_in) after the conv, in the model's dtype -> the
     discretised (a_bar, bx) (B, S, d_in, N) and c (B, S, N), float32."""
     n = cfg.mamba.d_state
-    proj = xc @ params["w_x"]
+    # The product sums over the split channels: reduced here, as GSPMD
+    # reduces it, before the bias is added (torch 2.11's DTensor cannot add a
+    # pending sum to a split bias).
+    proj = common.with_logical(xc @ params["w_x"], "batch", "seq", None)
     dt_r, b_mat, c_mat = torch.split(proj, [dt_rank(cfg), n, n], dim=-1)
     dt = (dt_r @ params["w_dt"]).float() + params["dt_bias"]
     dt = torch.logaddexp(dt, dt.new_zeros(()))                 # jax.nn.softplus
@@ -149,8 +154,11 @@ def _chunk_scan(a_bar: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor):
 
 
 def _selective_scan(a_bar, bx, c_mat, h0, chunk: int):
-    """The chunked scan over the whole sequence: (y (B, S, d_in), h_last)."""
+    """The chunked scan over the whole sequence from the state ``h0`` (or
+    zeros where it is None): (y (B, S, d_in), h_last)."""
     s = a_bar.shape[1]
+    if h0 is None:
+        h0 = a_bar.new_zeros((a_bar.shape[0], *a_bar.shape[2:]))
     ck = min(chunk, s)
     if s % ck:
         raise ValueError(f"mamba: a sequence of {s} is not a multiple of the chunk {ck}")
@@ -196,9 +204,15 @@ def mamba_block(
             xconv = xconv + xp[:, i:i + s].float() * params["conv_w"][i]
         xconv = common.silu(xconv + params["conv_b"]).to(dtype)
         a_bar, bx, c_mat = _ssm_inputs(params, xconv, cfg)
-        h0 = (state.ssm.float() if state is not None
-              else torch.zeros((b, d_in, mc.d_state), dtype=torch.float32, device=x.device))
-        y, h_last = _selective_scan(a_bar, bx, c_mat, h0, MAMBA_CHUNK)
+        # Local to each batch row and channel: on local shards under a mesh
+        # (DTensor has no strategy for the scan's strided writes' backward).
+        bd = ("batch", None, "conv_dim")
+        scan = sharding.on_local_shards(
+            functools.partial(_selective_scan, chunk=MAMBA_CHUNK),
+            (bd + (None,), bd + (None,), ("batch", None, None),
+             None if state is None else ("batch", "conv_dim", None)),
+            (bd, ("batch", "conv_dim", None)))
+        y, h_last = scan(a_bar, bx, c_mat, None if state is None else state.ssm.float())
         new_state = None if state is None else MambaState(
             conv=xp[:, s:].to(state.conv.dtype), ssm=h_last, index=s)
 

@@ -33,11 +33,13 @@ written into the buffers in place.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.models import common
 from repro_torch.models.attention import cache_insert
 from repro_torch.models.config import ModelConfig
@@ -171,8 +173,8 @@ def mla_block(
 
     if cache is not None:
         n = cache.index + s
-        cache_insert(cache.c_kv, c_kv, cache.index)
-        cache_insert(cache.k_rope, k_rope, cache.index)
+        cache_insert(cache.c_kv, c_kv, cache.index, cfg.cache_update)
+        cache_insert(cache.k_rope, k_rope, cache.index, cfg.cache_update)
         new_cache = MLACache(c_kv=cache.c_kv, k_rope=cache.k_rope, index=n)
         # attend over what the cache holds (its dtype's roundings), as the reference
         c_kv, k_rope = cache.c_kv[:, :n].to(dtype), cache.k_rope[:, :n].to(dtype)
@@ -187,7 +189,11 @@ def mla_block(
         v = (c_kv @ params["w_uv"]).view(b, skv, h, dv)
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, skv, h, dr)], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
-        out = _attend(q, k, v, 0 if cache is None else cache.index)
+        # Local to each batch row and head: on local shards under a mesh
+        # (DTensor cannot take the reshapes of the einsums' backward there).
+        heads = ("batch", None, "heads", None)
+        attend = functools.partial(_attend, q_offset=0 if cache is None else cache.index)
+        out = sharding.on_local_shards(attend, (heads,) * 3, heads)(q, k, v)
 
     y = out.reshape(b, s, h * dv) @ params["w_o"]
     return common.with_logical(y, "batch", "seq", None), new_cache

@@ -40,13 +40,17 @@ reference's ``with_logical`` hints.  Plain tensors made inside the model
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import threading
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch import nn
-from torch.distributed.tensor import distribute_tensor
+from torch.distributed.tensor import DTensor, Partial, distribute_tensor
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed import sharding
@@ -280,10 +284,12 @@ def _mlp(layer, x: torch.Tensor, x32: torch.Tensor, cfg: ModelConfig):
 
 
 def _apply_layer(layer, x: torch.Tensor, x32: torch.Tensor, positions: torch.Tensor,
-                 cfg: ModelConfig, cache):
+                 cfg: ModelConfig, cache, tag: Callable = lambda h: h):
     """``x``: the residual stream in the model's dtype, ``x32``: the float32
-    value of its last sum (``_add``).  Returns (x, x32, new_cache, the MoE's
-    aux terms or None)."""
+    value of its last sum (``_add``).  ``tag`` marks an attention layer's
+    mixer and MLP outputs, before any post-block norm (the reference's
+    ``mixer_out`` and ``mlp_out`` names).  Returns (x, x32, new_cache, the
+    MoE's aux terms or None)."""
     eps = cfg.norm_eps
     mixer = layer.kind in _MIXERS
     h = common.rms_norm(x32, layer.norm if mixer else layer.norm_attn, eps, x.dtype)
@@ -294,16 +300,156 @@ def _apply_layer(layer, x: torch.Tensor, x32: torch.Tensor, positions: torch.Ten
     else:
         h, new_cache = attention.attention_block(layer.attn, h, positions, cfg, layer.kind,
                                                  cache)
+    if not mixer:
+        h = tag(h)
     if cfg.post_block_norm and not mixer:
         h = common.rms_norm(h, layer.post_norm_attn, eps)
     x, x32 = _add(x, h)
     if not hasattr(layer, "mlp"):                 # an xLSTM layer, a Mamba layer without d_ff
         return x, x32, new_cache, None
     h, aux = _mlp(layer, x, x32, cfg)
+    if not mixer:
+        h = tag(h)
     if cfg.post_block_norm and not mixer:
         h = common.rms_norm(h, layer.post_norm_mlp, eps)
     x, x32 = _add(x, h)
     return x, x32, new_cache, aux
+
+
+@contextlib.contextmanager
+def _fsdp_gathered(layer, specs: Optional[dict]):
+    """Within: the layer's weights split over the "fsdp" axes gathered for
+    use (ZeRO-3, as GSPMD gathers the reference's: DTensor, left to itself,
+    may move the activations instead, and a head could compute every token
+    against the whole vocabulary on every rank); their gradients go back
+    to the shards.  ``specs`` are the layer's logical axes by parameter name
+    (None without a mesh: nothing to do)."""
+    if not specs:
+        yield
+        return
+    swapped = []
+    for name, axes in specs.items():
+        owner_name, _, leaf = name.rpartition(".")
+        owner = layer.get_submodule(owner_name) if owner_name else layer
+        weight = owner._parameters[leaf]
+        owner._parameters[leaf] = sharding.logical_constraint(
+            weight, tuple(None if a == "fsdp" else a for a in axes))
+        swapped.append((owner, leaf, weight))
+    try:
+        yield
+    finally:
+        for owner, leaf, weight in swapped:
+            owner._parameters[leaf] = weight
+
+
+def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``.  Under a mesh (DTensors), the vocab-parallel lookup
+    GSPMD makes of the reference's: the table laid out by "vocab" only (its
+    "fsdp" split gathered), each rank reads the rows it holds for its
+    shard of ``ids`` (zeros for the ids outside them, whose pending sum over
+    the vocab's mesh axes is the row), on local shards (DTensor's own
+    strategy for the lookup's backward fails in some torch versions)."""
+    if not isinstance(table, DTensor):
+        return table[ids]
+    mesh = table.device_mesh
+    table = sharding.logical_constraint(table, ("vocab", None))
+    split = [i for i, p in enumerate(table.placements) if p.is_shard(0)]
+    index = 0
+    for i in split:                          # this rank's shard of the rows, mesh-major
+        index = index * mesh.size(i) + mesh.get_local_rank(i)
+    out = list(sharding.logical_placements(("batch", "seq", None), mesh=mesh))
+    for i in split:
+        out[i] = Partial()
+
+    def local(rows, local_ids):
+        first = index * rows.shape[0]
+        at = local_ids - first
+        held = (at >= 0) & (at < rows.shape[0])
+        got = rows[at.clamp(0, rows.shape[0] - 1)]
+        return torch.where(held[..., None], got, got.new_zeros(()))
+
+    ids = sharding.logical_constraint(ids, ("batch", "seq"))
+    return local_map(local, out_placements=out,
+                     in_placements=(tuple(table.placements), tuple(ids.placements)),
+                     device_mesh=mesh)(table, ids)
+
+
+class _Names(threading.local):
+    tagging = False
+
+
+_names = _Names()
+
+
+def _tag_name(h: torch.Tensor) -> torch.Tensor:
+    """A copy of ``h`` that the "names" remat policy saves (the reference's
+    ``checkpoint_name``): the policy keeps the output of the one operation
+    made while the flag is up."""
+    _names.tagging = True
+    try:
+        return h.clone()
+    finally:
+        _names.tagging = False
+
+
+def _save_names(ctx, op, *args, **kwargs):
+    """The "names" policy: save the tagged outputs, recompute the rest (the
+    reference's ``save_only_these_names("mixer_out", "mlp_out")``)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if _names.tagging
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+class _Unit(nn.Module):
+    """One repeated unit's layers (the modules of the model, not copies),
+    run under activation checkpointing by ``LMModel.apply``: only the
+    residual stream enters; its float32 value is re-derived at the start, as
+    the reference's scan carry is rounded there."""
+
+    def __init__(self, layers, cfg: ModelConfig, tag: Callable, specs: list):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+        self.cfg, self.tag, self.specs = cfg, tag, specs
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+        """(x after the unit, each layer's MoE aux terms or None)."""
+        x32 = x.float()
+        auxes = []
+        for layer, specs in zip(self.layers, self.specs):
+            with _fsdp_gathered(layer, specs):
+                x, x32, _, layer_aux = _apply_layer(layer, x, x32, positions, self.cfg, None,
+                                                    self.tag)
+            auxes.append(layer_aux)
+        return x, auxes
+
+
+def _remat(unit: _Unit, x: torch.Tensor, positions: torch.Tensor, policy: str):
+    """``unit(x, positions)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    policy "nothing" keeps only ``x`` for the backward, "names" also the
+    tagged outputs.  The weights go in as the checkpoint's inputs, so that
+    the recomputation runs on the tensors the forward ran on (the trainer's
+    aliases, bound by ``functional_call`` only while the forward runs)."""
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    names = [n for n, _ in unit.named_parameters()]
+    weights = [p for _, p in unit.named_parameters()]
+    mesh, rules = sharding.current_mesh(), sharding.current_rules()
+
+    def run(x, *ws):
+        # The recomputation runs on autograd's thread for the device, which
+        # does not see this thread's mesh and rules: they go with it.
+        with sharding.use_mesh(mesh), sharding.use_rules(rules), \
+                sharding.plain_as_replicated():
+            return torch.func.functional_call(unit, dict(zip(names, ws)), (x, positions))
+
+    context = {}
+    if policy == "names":
+        context["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                  _save_names)
+    elif policy != "nothing":
+        raise ValueError(f"remat_policy must be 'nothing' or 'names', got {policy!r}")
+    return checkpoint(run, x, *weights, use_reentrant=False, **context)
 
 
 @torch.no_grad()
@@ -385,7 +531,7 @@ class LMModel(nn.Module):
         if inputs.dim() == 3:              # a stub frontend's embeddings
             x = inputs.to(self.dtype)
         else:
-            x = self.embed[inputs.long()]
+            x = _lookup(self.embed, inputs.long())
             if cfg.post_block_norm:        # gemma2 scales the embedding, in the model's dtype
                 x = x * torch.tensor(cfg.d_model ** 0.5, dtype=self.dtype)
         if cfg.pos_embedding == "sinusoidal":
@@ -401,7 +547,9 @@ class LMModel(nn.Module):
         model's dtype: ``apply``)."""
         cfg = self.cfg
         x = common.rms_norm(x32, self.final_norm, cfg.norm_eps, self.dtype)
-        head = self.embed.T if cfg.tie_embeddings else self.lm_head
+        head = (sharding.logical_constraint(self.embed, ("vocab", None)).T
+                if cfg.tie_embeddings
+                else sharding.logical_constraint(self.lm_head, (None, "vocab")))
         logits = common.softcap((x @ head).float(), cfg.logit_softcap)
         return common.with_logical(logits, "batch", "seq", "vocab")
 
@@ -435,14 +583,35 @@ class LMModel(nn.Module):
         x32 = x.float()
         new_caches = None if caches is None else []
         aux = {"aux_loss": 0.0, "z_loss": 0.0, "fraction_dropped": 0.0}
+        specs = self._layer_specs() if sharding.on_mesh() else [None] * len(self.layers)
+        if cfg.remat and caches is None and torch.is_grad_enabled():
+            # Training: each repeated unit under activation checkpointing (the
+            # reference's jax.checkpoint of its scanned unit); the prefix
+            # layers are not rematerialised, as the reference's are not.
+            tag = _tag_name if cfg.remat_policy == "names" else (lambda h: h)
+            n = len(cfg.prefix)
+            for layer, layer_specs in zip(self.layers[:n], specs):
+                with _fsdp_gathered(layer, layer_specs):
+                    x, x32, _, layer_aux = _apply_layer(layer, x, x32, positions, cfg, None)
+                if layer_aux is not None:
+                    aux = {k: aux[k] + layer_aux[k] for k in aux}
+            width = len(cfg.pattern_unit)
+            for lo in range(n, len(self.layers), width):
+                unit = _Unit(self.layers[lo:lo + width], cfg, tag, specs[lo:lo + width])
+                x, auxes = _remat(unit, x, positions, cfg.remat_policy)
+                for layer_aux in auxes:           # summed in layer order, as below
+                    if layer_aux is not None:
+                        aux = {k: aux[k] + layer_aux[k] for k in aux}
+            return self._logits(x.float()), None, aux
         for i, layer in enumerate(self.layers):
             if _starts_unit(cfg, i):
                 # The reference scans over its units: the residual stream
                 # crosses from one to the next (and out to the final norm)
                 # as the scan's carry, rounded to the model's dtype.
                 x32 = x.float()
-            x, x32, cache, layer_aux = _apply_layer(layer, x, x32, positions, cfg,
-                                                    None if caches is None else caches[i])
+            with _fsdp_gathered(layer, specs[i]):
+                x, x32, cache, layer_aux = _apply_layer(layer, x, x32, positions, cfg,
+                                                        None if caches is None else caches[i])
             if caches is not None:
                 new_caches.append(cache)
             if layer_aux is not None:
@@ -484,6 +653,9 @@ class LMModel(nn.Module):
         f32 = dict(dtype=torch.float32, device=logits.device)
         moe_aux, moe_z, dropped = (torch.as_tensor(aux[k], **f32)
                                    for k in ("aux_loss", "z_loss", "fraction_dropped"))
+        # Under a mesh the terms may be pending sums and pending means, which
+        # DTensor does not add: each is reduced first (no-ops without a mesh).
+        ce, z_loss, moe_aux, moe_z = (sharding.replicated(t) for t in (ce, z_loss, moe_aux, moe_z))
         total = ce + z_loss + moe_aux + moe_z
         metrics = {"loss": total, "ce": ce, "moe_aux": moe_aux, "moe_dropped": dropped}
         return total, metrics
@@ -514,6 +686,11 @@ class LMModel(nn.Module):
         for i, kind in enumerate(cfg.layer_kinds):
             _flatten(_layer_specs(cfg, kind, i), f"layers.{i}.", specs)
         return specs
+
+    def _layer_specs(self) -> list[dict]:
+        """Each layer's parameters' logical axes, named within the layer."""
+        return [_flatten(_layer_specs(self.cfg, kind, i), "", {})
+                for i, kind in enumerate(self.cfg.layer_kinds)]
 
     def abstract_params(self) -> dict:
         """Every parameter's shape and dtype, allocating nothing: the state
@@ -599,12 +776,14 @@ def _map_leaves(node: Any, fn: Callable) -> Any:
     return fn(node)
 
 
+@functools.lru_cache(maxsize=None)
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     """Total parameters, as the reference counts them.  ``active_only``
     counts each routed expert tensor of an MoE layer past ``cfg.prefix`` at
     ``top_k / num_experts`` of its size: the reference's rule, which scales
     the leaves of its stacked ``units`` whose second axis is the expert
-    count (the prefix's layers are not stacked)."""
+    count (the prefix's layers are not stacked).  Memoised (a config is
+    frozen)."""
     model = LMModel(cfg, device="meta")
     total = sum(p.numel() for p in model.parameters())
     if not active_only or cfg.moe is None:

@@ -18,8 +18,11 @@ decode step reads every expert's weights.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.models import common
 from repro_torch.models.config import MoeConfig
 from repro_torch.models.mlp import init_mlp_params, mlp_block, mlp_param_specs
@@ -84,6 +87,22 @@ def route(logits: torch.Tensor, moe: MoeConfig, cap: int):
     return probs, sel, top_p * kept, top_e, slot, kept
 
 
+def _dispatch(xt, top_e, slot, kept, e: int, cap: int):
+    """(E, cap + 1, D): each kept (token, choice) row in its expert's slot,
+    a dropped one in the spare slot ``cap``."""
+    t, k = top_e.shape
+    buf = xt.new_zeros((e, cap + 1, xt.shape[1]))
+    buf[top_e, torch.where(kept, slot, cap)] = xt[:, None, :].expand(t, k, xt.shape[1])
+    return buf
+
+
+def _combine(ex_out, top_e, slot, kept, gate):
+    """(T, D) in the experts' dtype: each token's k rows weighted by their
+    gates (a dropped one reads slot 0, weight 0)."""
+    rows = ex_out[top_e, torch.where(kept, slot, 0)].float()                 # (T, k, D)
+    return (gate.to(ex_out.dtype).float()[..., None] * rows).sum(1).to(ex_out.dtype)
+
+
 def moe_block(params, x: torch.Tensor, moe: MoeConfig) -> tuple[torch.Tensor, dict]:
     """``params`` maps ``router`` (float32), ``w_gate``, ``w_up``, ``w_down``
     and ``shared`` to weights.  Returns (out (B, S, D), aux {aux_loss,
@@ -93,25 +112,34 @@ def moe_block(params, x: torch.Tensor, moe: MoeConfig) -> tuple[torch.Tensor, di
     cap = _capacity(t, moe)
     dtype = x.dtype
 
-    xt = x.reshape(t, d)
+    # The tokens' gradient is laid out as the tokens are before the reshape
+    # back to (B, S, D) (DTensor leaves it split over "experts" too).
+    xt = sharding.keep_grad_layout(x.reshape(t, d))
     logits = xt.float() @ params["router"].float()
-    probs, sel, gate, top_e, slot, kept = route(logits, moe, cap)
+    # Under a mesh the routing, the dispatch scatter and the combine gather
+    # run whole on every rank (their inputs gathered; explicit
+    # redistributes): a token's slot counts the choices of every token before
+    # it, and DTensor has no strategy for the scatter (GSPMD replicates such
+    # work too).  Only the experts' products run split over "experts".
+    whole = (None, None)
+    probs, sel, gate, top_e, slot, kept = sharding.on_local_shards(
+        lambda lg: route(lg, moe, cap), (whole,),
+        (whole, (None,) * 3, whole, whole, whole, whole))(logits)
 
     # dispatch: kept (token, choice) rows into their expert's slots; the
     # dropped ones go to a spare slot past the capacity, which no expert runs.
     # (The reference's hint on its (T, E, C) one-hot dispatch tensor has no
     # counterpart: the rows are written into the buffer directly.)
-    slot = torch.where(kept, slot, cap)
-    buf = x.new_zeros((e, cap + 1, d))
-    buf[top_e, slot] = xt[:, None, :].expand(t, k, d)
+    buf = sharding.on_local_shards(functools.partial(_dispatch, e=e, cap=cap),
+                                   (whole, whole, whole, whole), (None,) * 3)(xt, top_e, slot, kept)
     ex_in = common.with_logical(buf[:, :cap], "experts", None, None)
     h = common.silu(torch.bmm(ex_in, params["w_gate"])) * torch.bmm(ex_in, params["w_up"])
     ex_out = common.with_logical(torch.bmm(h, params["w_down"]),              # (E, C, D)
                                  "experts", None, None)
 
     # combine: each token's k rows (a dropped one reads slot 0, weight 0)
-    rows = ex_out[top_e, torch.where(kept, slot, 0)].float()                 # (T, k, D)
-    out = (gate.to(dtype).float()[..., None] * rows).sum(1).to(dtype)
+    out = sharding.on_local_shards(_combine, ((None,) * 3, whole, whole, whole, whole), whole)(
+        ex_out, top_e, slot, kept, gate)
     if moe.num_shared > 0:
         out = out + mlp_block(params["shared"], x, "silu").reshape(t, d)
 

@@ -31,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels.ref import tanh_f32
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
@@ -170,6 +171,28 @@ def _mlstm_chunk(q, k, v, logf, logi, c0, n0, m0):
     return h, c1, n1, m1
 
 
+def _mlstm_run(q, k, v, logf, logi, c, n, m):
+    """The mLSTM over a sequence of (B, H, S, dh) in chunks of
+    ``min(MLSTM_CHUNK, S)`` from the state (c, n, m), or from zeros where
+    ``c`` is None.  Returns (h (B, H, S, dh), c1, n1, m1)."""
+    b, hs, s, dh = q.shape
+    if c is None:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        c = torch.zeros((b, hs, dh, dh), **f32)
+        n = torch.zeros((b, hs, dh), **f32)
+        m = torch.full((b, hs), -1e30, **f32)
+    if s == 1:
+        return _mlstm_chunk(q, k, v, logf, logi, c, n, m)
+    ck = min(MLSTM_CHUNK, s)
+    outs = []
+    for lo in range(0, s, ck):
+        sl = slice(lo, lo + ck)
+        h_c, c, n, m = _mlstm_chunk(q[:, :, sl], k[:, :, sl], v[:, :, sl], logf[..., sl],
+                                    logi[..., sl], c, n, m)
+        outs.append(h_c)
+    return torch.cat(outs, 2), c, n, m
+
+
 def mlstm_block(
     params,
     x: torch.Tensor,              # (B, S, D)
@@ -193,35 +216,32 @@ def mlstm_block(
     logi, logf = gates[..., :hs], log_sigmoid(gates[..., hs:])
 
     def heads(t):                                       # (B, S, E) -> (B, H, S, dh) float32
+        # The merged dimension takes its heads' layout first: DTensor cannot
+        # split a dimension whose shards cut through a head.
+        t = common.with_logical(t, "batch", "seq", "heads")
         return t.reshape(b, s, hs, dh).transpose(1, 2).float()
 
     qh, kh, vh = heads(q), heads(k), heads(v)
     logi_t, logf_t = logi.transpose(1, 2), logf.transpose(1, 2)      # (B, H, S)
 
-    if state is not None and s == 1:
-        h, c1, n1, m1 = _mlstm_chunk(qh, kh, vh, logf_t, logi_t, state.c, state.n, state.m)
-    else:
-        ck = min(MLSTM_CHUNK, s)
-        if s % ck:
-            raise ValueError(f"mlstm: a sequence of {s} is not a multiple of the chunk {ck}")
-        if state is not None:
-            c1, n1, m1 = state.c, state.n, state.m
-        else:
-            f32 = dict(dtype=torch.float32, device=x.device)
-            c1 = torch.zeros((b, hs, dh, dh), **f32)
-            n1 = torch.zeros((b, hs, dh), **f32)
-            m1 = torch.full((b, hs), -1e30, **f32)
-        outs = []
-        for lo in range(0, s, ck):
-            sl = slice(lo, lo + ck)
-            h_c, c1, n1, m1 = _mlstm_chunk(qh[:, :, sl], kh[:, :, sl], vh[:, :, sl],
-                                           logf_t[..., sl], logi_t[..., sl], c1, n1, m1)
-            outs.append(h_c)
-        h = torch.cat(outs, 2)
+    if s % min(MLSTM_CHUNK, s):
+        raise ValueError(f"mlstm: a sequence of {s} is not a multiple of the chunk "
+                         f"{min(MLSTM_CHUNK, s)}")
+    # Local to each batch row and head: on local shards under a mesh
+    # (DTensor cannot take the reshapes of the einsums' backward there).
+    bh = ("batch", "heads", None)
+    run = sharding.on_local_shards(
+        _mlstm_run, (bh + (None,),) * 3 + (bh, bh) + (
+            (None,) * 3 if state is None else (bh + (None,), bh, ("batch", "heads"))),
+        (bh + (None,), bh + (None,), bh, ("batch", "heads")))
+    h, c1, n1, m1 = run(qh, kh, vh, logf_t, logi_t, *(
+        (None,) * 3 if state is None else (state.c, state.n, state.m)))
     new_state = None if state is None else MLSTMState(c=c1, n=n1, m=m1, conv=conv_tail,
                                                       index=state.index + s)
 
-    h = h.transpose(1, 2).reshape(b, s, d_inner).to(dtype)
+    # Its gradient comes back in the heads' layout, which the backward of
+    # the reshape can split (the channels' split cuts through a head).
+    h = sharding.keep_grad_layout(h.transpose(1, 2).reshape(b, s, d_inner)).to(dtype)
     h = h + xc * params["ogate_skip"]                   # learnable skip
     h = h * common.silu(z)
     return common.with_logical(h @ params["w_down"], "batch", "seq", None), new_state
@@ -294,6 +314,21 @@ def _slstm_step(r_gates: torch.Tensor, carry, gx: torch.Tensor):
     return c_new, n_new, h_new, m_new
 
 
+def _slstm_run(r_gates, gx, c, n, h, m):
+    """The sLSTM over gx (B, S, 4D) from the carry (c, n, h, m), or from
+    zeros (m at -1e30) where ``c`` is None: (every step's h stacked
+    (B, S, H, dh), the last carry)."""
+    if c is None:
+        b, hs, dh = gx.shape[0], r_gates.shape[0], r_gates.shape[1]
+        zeros = torch.zeros((b, hs, dh), dtype=torch.float32, device=gx.device)
+        c, n, h, m = zeros, zeros, zeros, torch.full_like(zeros, -1e30)
+    carry, hseq = (c, n, h, m), []
+    for t in range(gx.shape[1]):
+        carry = _slstm_step(r_gates, carry, gx[:, t])
+        hseq.append(carry[2])
+    return (torch.stack(hseq, 1), *carry)
+
+
 def slstm_block(
     params,
     x: torch.Tensor,              # (B, S, D)
@@ -305,16 +340,17 @@ def slstm_block(
     b, s, d = x.shape
     hs, dh = slstm_dims(cfg)
     gx = (x @ params["w_gates"]).float() + params["gate_bias"]
-    if state is not None:
-        carry = (state.c.float(), state.n.float(), state.h.float(), state.m.float())
-    else:
-        zeros = torch.zeros((b, hs, dh), dtype=torch.float32, device=x.device)
-        carry = (zeros, zeros, zeros, torch.full_like(zeros, -1e30))
-    hseq = []
-    for t in range(s):
-        carry = _slstm_step(params["r_gates"], carry, gx[:, t])
-        hseq.append(carry[2])
-    h = torch.stack(hseq, 1).reshape(b, s, d).to(dtype)
+    # The recurrence is local to each batch row: on local shards under a
+    # mesh (a step of a few operations on whole DTensors, S times, is slow to
+    # dispatch).
+    bhd = ("batch", None, None)
+    run = sharding.on_local_shards(
+        _slstm_run, ((None, None, None), bhd) + ((None,) * 4 if state is None else (bhd,) * 4),
+        (("batch", None, None, None),) + (bhd,) * 4)
+    hseq, *carry = run(params["r_gates"], gx, *(
+        (None,) * 4 if state is None
+        else (state.c.float(), state.n.float(), state.h.float(), state.m.float())))
+    h = hseq.reshape(b, s, d).to(dtype)
     new_state = None if state is None else SLSTMState(*carry, index=state.index + s)
 
     # the block's gated FFN (projection factor 4/3, GeLU)

@@ -62,22 +62,32 @@ def make_train_step(
     sched_cfg: ScheduleConfig,
     microbatches: int = 1,
     accum_dtype: str = "float32",
+    presplit: bool = False,
 ) -> Callable:
     """Returns (params, opt_state, batch) -> (params, opt_state, metrics),
     updating ``params`` and the moments in place.  With ``microbatches`` > 1
     each batch tensor's first axis is split into that many equal parts; the
     gradients are summed in ``accum_dtype`` and divided by ``microbatches``,
-    and the loss and metrics are the microbatches' means."""
+    and the loss and metrics are the microbatches' means.
+
+    ``presplit=True``: every batch tensor already carries a leading
+    (microbatches, mb, ...) axis and microbatch ``i`` is ``x[i]`` (the
+    launcher and the dry run use it): indexing the outer axis keeps a
+    DTensor's batch-sharded inner axis where it is, while a slice of a
+    sharded axis would make DTensor gather it."""
 
     @sharding.plain_as_replicated()
     def train_step(params, opt_state, batch):
-        if microbatches == 1:
-            loss, metrics, grads = value_and_grad(model, params, batch)
-        else:
-            def split(x, i):
-                n = x.shape[0] // microbatches
-                return x[i * n:(i + 1) * n]
+        def split(x, i):
+            if presplit:
+                return x[i]
+            n = x.shape[0] // microbatches
+            return x[i * n:(i + 1) * n]
 
+        if microbatches == 1:
+            mb = {k: split(x, 0) for k, x in batch.items()} if presplit else batch
+            loss, metrics, grads = value_and_grad(model, params, mb)
+        else:
             acc = {n: torch.zeros_like(p, dtype=getattr(torch, accum_dtype))
                    for n, p in params.items()}
             losses, stack = [], []

@@ -132,29 +132,28 @@ def test_attend_gradients_match_jax_grad_of_blockwise(window, cap, q_scale):
 
 
 def test_flash_function_wires_forward_and_backward(monkeypatch):
-    """``_FlashFn`` (the CUDA path under autograd) saves the forward's
-    inputs, output and log-sum-exp and hands them, with the options, to the
-    backward launch: here both launches are stood in by the plain version."""
+    """The op ``repro_torch::flash_fwd`` under autograd (the kernels' path)
+    computes the log-sum-exp where a gradient is wanted and hands its inputs,
+    output and log-sum-exp, with the options, to ``repro_torch::flash_bwd``:
+    here both implementations are stood in by the plain version."""
     calls = {}
 
     def fake_forward(q, k, v, causal, window, softcap, with_lse):
         calls["forward"] = (causal, window, softcap, with_lse)
-        return ref.flash_attention_ref(q, k, v, causal, window, softcap), torch.zeros(1)
+        out = ref.flash_attention_ref(q, k, v, causal, window, softcap)
+        return out, torch.zeros((q.shape[0] * q.shape[1], q.shape[2]))
 
-    def fake_backward(q, k, v, out, lse, dout, *, causal, window, softcap):
+    def fake_backward(q, k, v, out, lse, dout, causal, window, softcap):
         calls["backward"] = (causal, window, softcap, tuple(lse.shape))
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            o = ref.flash_attention_ref(*leaves, causal, window, softcap)
-            return torch.autograd.grad(o, leaves, dout)
+        return ref.flash_attention_bwd_ref(q, k, v, dout, causal, window, softcap)
 
-    monkeypatch.setattr(port_flash, "_forward", fake_forward)
-    monkeypatch.setattr(port_flash, "flash_attention_backward", fake_backward)
+    monkeypatch.setattr(port_flash, "_plain_forward", fake_forward)
+    monkeypatch.setattr(port_flash, "_plain_backward", fake_backward)
     gen = torch.Generator().manual_seed(3)
     q, k, v = (torch.randn(1, 2, 20, 16, generator=gen, requires_grad=True) for _ in range(3))
-    out = port_flash._FlashFn.apply(q, k, v, True, 7, 20.0)
+    out = port_flash.flash_attention(q, k, v, causal=True, window=7, softcap=20.0)
     out.sum().backward()
-    assert calls == {"forward": (True, 7, 20.0, True), "backward": (True, 7, 20.0, (1,))}
+    assert calls == {"forward": (True, 7, 20.0, True), "backward": (True, 7, 20.0, (2, 20))}
     q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
     ref.flash_attention_ref(q2, k2, v2, True, 7, 20.0).sum().backward()
     for got, want in ((q.grad, q2.grad), (k.grad, k2.grad), (v.grad, v2.grad)):
