@@ -61,7 +61,9 @@ Phases (any failure exits nonzero):
     ``flex_attention``'s (softcap score_mod, window block mask: a yardstick;
     its failure to compile is printed, not raised); and the options' edge
     cases at S = 640 in bfloat16 and float32 (windows 100 and 4097, with and
-    without the softcap, the softcap alone);
+    without the softcap, the softcap alone); flash at the examples' head
+    widths 32 and 16 (FLASH_EXAMPLE_SHAPES) in bfloat16 and float32, causal
+    and full, against its plain version;
  4. single frame: ``ielas_disparity`` for elas-kitti and elas-tsukuba, one
     warm-up frame and five timed frames each, with the support, stream,
     Sobel and median launch counts rising by one per frame; per-stage and
@@ -225,7 +227,19 @@ Phases (any failure exits nonzero):
     of the formula at the local shapes), no kernel launched, each meter's
     totals (per-device flops, collective bytes by kind, MemTracker's memory)
     and a peak below 80 GiB a device;
-22. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
+22. the examples: each of ``examples/torch_*.py`` through its ``main`` on the
+    card at the reference's defaults, plus ``torch_train_lm`` at its 100m
+    preset for EXAMPLE_TRAIN_STEPS steps and ``torch_stereo_serving`` at
+    375x1242 with 4 streams x 4 frames: the quickstart's iELAS and baseline
+    maps equal to the port's CPU output (0 mismatches), every served frame
+    equal to the card's single-frame output of its pair, the launch counts
+    (one support, Sobel, stream and median launch a frame or wave; one flash
+    launch a layer a decode step in LM serving; one backward launch a layer a
+    microbatch a step in training), training's ce falling, the fault demo's 2
+    recoveries with a parameter diff of exactly 0.0 between distinct tensors
+    and its heartbeat verdicts; fps, tokens/s and s/step; then ``python
+    examples/torch_quickstart.py`` once in a subprocess; the phase's wall time;
+23. a JSON line of per-kernel numbers, then ``{"ok": true, "device": ...}``.
 
 Each phase prints how far into the run it starts.
 
@@ -369,6 +383,12 @@ FLASH_CAP_Q_SCALE = 30.0
 FLASH_GEMMA2_EDGE_S = 640
 FLASH_GEMMA2_EDGES = [(100, GEMMA2_SOFTCAP), (4097, GEMMA2_SOFTCAP), (0, GEMMA2_SOFTCAP),
                       (100, 0.0), (4097, 0.0)]
+# The flash forward at the examples' head widths (phase 22), held to its plain
+# version in both dtypes, causal and full: D = 32 (examples/torch_lm_serving.py
+# and torch_train_lm.py's fast preset, d_model 128 over 4 heads; a microbatch of
+# 4 sequences of 128) and D = 16 (torch_fault_tolerance_demo.py, 64 over 4; 4
+# sequences of 64), and a decode step at D = 32 (one query against 55 keys).
+FLASH_EXAMPLE_SHAPES = [(4, 4, 128, 128, 32), (4, 4, 64, 64, 16), (4, 4, 1, 55, 32)]
 SERVICE_STREAMS = 2       # streams of the service phase
 SERVICE_FRAMES = 8        # frames per stream (seeds 0-15)
 WARM_BAND = 8             # the service's default warm band
@@ -525,6 +545,13 @@ MESH_NEW = 4
 # the prefill cell beside decode (PERF.md).
 DRYRUN_CELLS = (("yi-9b", "decode_32k"), ("yi-9b", "prefill_32k"))
 DRYRUN_PEAK_GIB = 80
+# The examples phase (22): each of examples/torch_*.py through its main() on
+# the card, at the reference's defaults, and besides: torch_train_lm.py at its
+# 100m preset (12 x 768, 12 heads over 4 KV heads, D = 64, vocab 32768) for
+# EXAMPLE_TRAIN_STEPS steps, and torch_stereo_serving.py at KITTI's frame size
+# with EXAMPLE_KITTI_STREAMS streams of as many frames.
+EXAMPLE_TRAIN_STEPS = 30
+EXAMPLE_KITTI_STREAMS = 4
 
 
 def main() -> int:
@@ -1564,6 +1591,30 @@ def main() -> int:
     print(f"kernel flash_attention gemma2 edge cases (1, 4, {FLASH_GEMMA2_EDGE_S}, "
           f"{FLASH_GEMMA2_EDGE_S}, 128) causal, softcap rows with q x {FLASH_CAP_Q_SCALE}: "
           f"{'; '.join(edge_rows)} {card}")
+    del q, k, v, got, want, diff
+
+    # The examples' head widths, both dtypes, against the plain version.
+    narrow_rows = []
+    for b, h, sq, skv, d in FLASH_EXAMPLE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).removeprefix("torch.")
+            atol, rtol = FLASH_TOL[dname]
+            gen = torch.Generator().manual_seed(4)
+            q, k, v = (torch.randn((b, h, n, d), generator=gen).to(dev, dtype)
+                       for n in (sq, skv, skv))
+            for causal in ((True, False) if sq == skv else (False,)):
+                got = flash_kernel.flash_attention(q, k, v, causal=causal).float()
+                want = ref.flash_attention_ref(q, k, v, causal=causal).float()
+                diff = (got - want).abs()
+                over = int((diff > atol + rtol * want.abs()).sum())
+                narrow_rows.append(f"{(b, h, sq, skv, d)} {dname} causal={causal}: {over} of "
+                                   f"{got.numel()} outside, max {float(diff.max()):.3g}")
+                if over:
+                    raise AssertionError(f"flash kernel outside its tolerance of the plain "
+                                         f"version ({(b, h, sq, skv, d)}, {dname}, "
+                                         f"causal={causal})")
+    print(f"kernel flash_attention at the examples' head widths 32 and 16: "
+          f"{'; '.join(narrow_rows)} {card}")
     del q, k, v, got, want, diff
 
     def trace(label, fn):
@@ -3370,8 +3421,181 @@ def main() -> int:
         raise AssertionError(f"dry run: kernels launched: {read_counts()} against {before}")
     print(f"dry-run phase: {time.perf_counter() - t_dry:.1f} s wall {card}")
 
-    # ---- 22. summary -------------------------------------------------------
+    # ---- 22. the examples -----------------------------------------------------
+    # examples/torch_*.py through their main() in this process on the card,
+    # each output held as the CPU tests hold it against the JAX package: here
+    # against the port's CPU run or the card's single-frame output; then the
+    # quickstart once as users run it, in a subprocess.
     phase_starts(22)
+    t_examples = time.perf_counter()
+    import importlib.util
+    import shutil
+    import tempfile
+
+    example_dir = ROOT / "build" / "examples"
+    shutil.rmtree(example_dir, ignore_errors=True)
+    example_dir.mkdir(parents=True)
+    stereo_kernels = ("support_match", "sobel", "dense_match_stream", "median3x3")
+
+    def example(name):
+        path = ROOT / "examples" / f"torch_{name}.py"
+        spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    def run_example(label, name, argv, want=None):
+        """(main's result, its launches): ``want`` maps kernels to the
+        launches the run must make (every kernel not named: 0), or is a
+        function of the result that gives that map."""
+        reset_counts()
+        t0 = time.perf_counter()
+        out = example(name).main(argv)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        for kk in launches:
+            launches[kk] += counts[kk]
+        print(f"example {label}: {wall:.2f} s wall, launches "
+              f"{ {kk: c for kk, c in counts.items() if c} } {card}")
+        if want is not None:
+            want = want(out) if callable(want) else want
+            expect = {kk: want.get(kk, 0) for kk in counts}
+            if counts != expect:
+                raise AssertionError(f"example {label}: launches {counts}, expected {expect}")
+        return out, counts
+
+    # the quickstart: two iELAS frames and two baseline frames, one launch of
+    # each stereo kernel a frame; both maps equal to the port's CPU output
+    quick, _ = run_example("torch_quickstart", "quickstart", [],
+                           {kk: 4 for kk in stereo_kernels})
+    il, ir, _ = synthetic_stereo_pair(height=240, width=320, d_max=40, n_objects=5, seed=7)
+    il, ir = np.asarray(il, np.float32), np.asarray(ir, np.float32)
+    for key, fn in (("ielas", pipeline.ielas_disparity),
+                    ("baseline", pipeline.elas_baseline_disparity)):
+        mism = int((fn(il, ir, SYNTH.params, device="cpu").numpy() != quick[key]).sum())
+        print(f"example torch_quickstart {key} 240x320: card vs CPU mismatches {mism} of "
+              f"{quick[key].size} {card}")
+        if mism:
+            raise AssertionError(f"example torch_quickstart: the {key} map differs from the CPU's")
+    print(f"example torch_quickstart: iELAS {quick['ielas_s'] * 1e3:.3f} ms a frame "
+          f"({1 / quick['ielas_s']:.2f} fps), baseline {quick['hybrid_s'] * 1e3:.3f} ms "
+          f"({1 / quick['hybrid_s']:.2f} fps), first call {quick['first_call_s']:.3f} s {card}")
+
+    # stereo serving: the first call, every frame single, the warm-up's dummy
+    # wave and the service's waves, one launch of each stereo kernel each;
+    # every delivered frame equal to the card's single-frame output of its pair
+    def stereo_launches(out):
+        n = 1 + len(out["serial"]) + 1 + out["stats"].waves
+        return {kk: n for kk in stereo_kernels}
+
+    for label, argv in (("defaults", []),
+                        ("KITTI 375x1242", ["--streams", str(EXAMPLE_KITTI_STREAMS),
+                                            "--frames", str(EXAMPLE_KITTI_STREAMS),
+                                            "--height", "375", "--width", "1242"])):
+        served, _ = run_example(f"torch_stereo_serving {label}", "stereo_serving", argv,
+                                stereo_launches)
+        done, st = served["done"], served["stats"]
+        bad = [c.error for c in done if not c.ok]
+        mism = sum(int((c.disparity != served["serial"][(c.stream_id, c.frame_id)].cpu()
+                        .numpy()).sum()) for c in done if c.ok)
+        print(f"example torch_stereo_serving {label}: {len(done)} delivered, {len(bad)} "
+              f"failed, mismatches {mism} against the single-frame outputs; single-frame "
+              f"{served['single_fps']:.2f} fps, service {served['service_fps']:.2f} fps, "
+              f"{st.waves} waves, occupancy {st.wave_occupancy:.3f}, p50 "
+              f"{st.latency_p50_ms:.3f} ms, p95 {st.latency_p95_ms:.3f} ms {card}")
+        if bad or mism or len(done) != len(served["serial"]) or st.cache_misses:
+            raise AssertionError(f"example torch_stereo_serving {label}: failed {bad[:2]}, "
+                                 f"{mism} mismatches, {st.cache_misses} misses")
+        del served, done
+
+    # LM serving: one flash launch a layer a decode step; each wave of 4 runs
+    # until its longest request's prompt and 32 new tokens are through (the
+    # last wave padded with one-token prompts)
+    lm_example = example("lm_serving")
+    lm_layers = lm_example.CFG.num_layers
+
+    def lm_launches(out):
+        lens = [len(pr) for pr in out["prompts"]]
+        waves = [lens[i:i + 4] + [1] * (4 - len(lens[i:i + 4])) for i in range(0, len(lens), 4)]
+        return {"flash_attention": lm_layers * sum(max(n + 32 - 1 for n in w) for w in waves)}
+
+    served, counts = run_example("torch_lm_serving", "lm_serving", [], lm_launches)
+    if served["tokens"] != 32 * len(served["prompts"]) or any(
+            not all(0 <= t < lm_example.CFG.vocab_size for t in o) for o in served["outs"]):
+        raise AssertionError(f"example torch_lm_serving: {served['tokens']} tokens")
+    print(f"example torch_lm_serving: {served['tokens']} tokens in {served['seconds']:.3f} s = "
+          f"{served['tokens_per_s']:.2f} tokens/s, flash (D = "
+          f"{lm_example.CFG.d_model // lm_example.CFG.num_heads}) launched "
+          f"{counts['flash_attention']} times = {lm_layers} layers x decode steps {card}")
+
+    # training: the fast preset at its defaults (200 steps), then the 100m
+    # preset; ce falls, each layer's backward runs once a microbatch a step
+    train_example = example("train_lm")
+    for preset, argv in (("fast", []), ("100m", ["--preset", "100m", "--steps",
+                                                 str(EXAMPLE_TRAIN_STEPS)])):
+        cfg = train_example.PRESETS[preset]
+        steps = EXAMPLE_TRAIN_STEPS if preset == "100m" else 200
+        trained, counts = run_example(
+            f"torch_train_lm {preset}", "train_lm",
+            argv + ["--ckpt-dir", str(example_dir / f"ckpt-{preset}")])
+        hist = trained["history"]
+        ces = [h["ce"] for h in hist]
+        step_s = sorted(h["step_time_s"] for h in hist)
+        print(f"example torch_train_lm {preset} ({trained['params']:,} parameters, D = "
+              f"{cfg.d_model // cfg.num_heads}): ce {ces[0]:.4f} -> {ces[-1]:.4f} over "
+              f"{trained['step']} steps, s/step median {step_s[len(step_s) // 2]:.4f} (min "
+              f"{step_s[0]:.4f}, max {step_s[-1]:.4f}), flash forward "
+              f"{counts['flash_attention']} and backward {counts['flash_attention_bwd']} "
+              f"launches {card}")
+        if (trained["step"] != steps or not all(math.isfinite(c) for c in ces)
+                or not ces[-1] < ces[0]):
+            raise AssertionError(f"example torch_train_lm {preset}: ce {ces}")
+        if (counts["flash_attention_bwd"] != cfg.num_layers * 2 * steps
+                or counts["flash_attention"] < counts["flash_attention_bwd"]):
+            raise AssertionError(f"example torch_train_lm {preset}: launches {counts}")
+        del trained
+        shutil.rmtree(example_dir / f"ckpt-{preset}", ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the fault-tolerance demo: its checkpoints under build/; 2 failures
+    # recovered, a diff of exactly 0.0 between two models' distinct tensors,
+    # the heartbeat's verdicts those the CPU test pins
+    tempfile.tempdir, saved_tempdir = str(example_dir), tempfile.tempdir
+    try:
+        demo, counts = run_example("torch_fault_tolerance_demo", "fault_tolerance_demo", [])
+    finally:
+        tempfile.tempdir = saved_tempdir
+    shared = [n for n in demo["params"] if demo["params"][n].untyped_storage().data_ptr()
+              == demo["clean_params"][n].untyped_storage().data_ptr()]
+    print(f"example torch_fault_tolerance_demo: {demo['failures']} failures recovered, step "
+          f"{demo['step']}, max param diff {demo['max_param_diff']} over "
+          f"{len(demo['params'])} tensors ({len(shared)} sharing storage), dead hosts "
+          f"{demo['dead_hosts']}, stragglers {demo['stragglers']}, restored step "
+          f"{demo['restored_step']} with {demo['restored_leaves']} leaves; flash forward "
+          f"{counts['flash_attention']} and backward {counts['flash_attention_bwd']} "
+          f"launches {card}")
+    if (demo["failures"] != 2 or demo["step"] != 20 or demo["max_param_diff"] != 0.0 or shared
+            or demo["dead_hosts"] != ["host1"] or demo["stragglers"] != ["host2"]
+            or not counts["flash_attention"] or not counts["flash_attention_bwd"]):
+        raise AssertionError("example torch_fault_tolerance_demo failed its checks")
+    del demo
+
+    # the quickstart as users run it
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "examples/torch_quickstart.py"], cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          capture_output=True, text=True, timeout=600)
+    print(f"python examples/torch_quickstart.py: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.2f} s; "
+          + " | ".join([ln for ln in proc.stdout.splitlines() if ln.strip()][-7:]))
+    if proc.returncode != 0 or "valid pixels:" not in proc.stdout:
+        raise AssertionError(f"examples/torch_quickstart.py failed: {proc.stderr[-2000:]}")
+    shutil.rmtree(example_dir, ignore_errors=True)
+    print(f"examples phase: {time.perf_counter() - t_examples:.1f} s wall {card}")
+
+    # ---- 23. summary -------------------------------------------------------
+    phase_starts(23)
     shown = {**SHOWN, "flash_attention_bwd": train_label}
     entries = []
     for kname, _, _, source, replaces in kernels:

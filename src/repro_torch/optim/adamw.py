@@ -58,7 +58,11 @@ def adamw_update(
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
 
     b1, b2 = cfg.b1, cfg.b2
-    step_f = step.to(torch.float32)
+    # The bias corrections on the host, as the rate is: a counter restored
+    # onto the card would otherwise take the card's pow, whose last bit can
+    # differ from the host's, and a replay after recovery would drift from
+    # the run it replays.
+    step_f = step.to("cpu", torch.float32)
     bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32), step_f)
     bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32), step_f)
     lr = torch.as_tensor(lr, dtype=torch.float32)

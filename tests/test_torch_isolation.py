@@ -1,6 +1,8 @@
 """The port stands alone: nothing under src/repro_torch/, in chip_smoke.py,
 dense_profile.py, flash_profile.py, stage_profile.py, service_profile.py,
-lm_step_profile.py or meshless_cost.py imports jax or the reference package, and importing the port loads no jax."""
+lm_step_profile.py, meshless_cost.py or the port's five examples
+(examples/torch_*.py) imports jax or the reference package, and importing
+the port loads no jax."""
 import ast
 import os
 import subprocess
@@ -14,7 +16,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "dense_profile.py", ROOT / "flash_profile.py",
     ROOT / "stage_profile.py", ROOT / "service_profile.py", ROOT / "lm_step_profile.py",
     ROOT / "meshless_cost.py",
-]
+] + [ROOT / "examples" / f"torch_{name}.py" for name in (
+    "quickstart", "stereo_serving", "lm_serving", "train_lm", "fault_tolerance_demo")]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
